@@ -16,7 +16,17 @@ Phases, each of which exits non-zero on failure:
      kernel's launch count set to 0 just before and read just after;
   5. profile one stage-0 and one stage-3 round of that path: device time by
      kernel class and the device's idle share;
-  6. check the card's result against the port's CPU path on a small model.
+  6. check the card's result against the port's CPU path on a small model;
+  7. hold the flash attention kernel (B4) against its plain version at the
+     Llama-3-8B training shape and its variants, with its times;
+  8. drive the LM main path: ``launch/train.py:train`` on full-width
+     Llama-3-8B (32 layers, 4 stages x 2 rounds, batch 4 x 1024 tokens),
+     with every kernel's launch count set to 0 just before and read just
+     after;
+  9. profile one stage-0 and one stage-3 LM round: device time by kernel
+     class and the device's idle share;
+ 10. check the card's LM result against the port's CPU path on a small
+     model.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -34,11 +44,14 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# the LM phases free and reallocate tens of GB of differently sized trees
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 # H100 SXM published peaks (NVIDIA data sheet) for the bound: HBM3 bytes/s
 # and float32 FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 RATIO = 0.1
 COHORT = 6
 
@@ -272,6 +285,14 @@ def _kernel_class(name):
     low = name.lower()
     if "sparse_cohort_add" in low:
         return "sparse_cohort_add"
+    if "flash_fwd" in low:
+        return "flash_attention (B4)"
+    if "softmax" in low:
+        return "softmax"
+    if "nvjet" in low or "cublas" in low or "cutlass" in low:
+        return "conv / gemm"
+    if any(t in low for t in ("index", "gather", "scatter", "embedding")):
+        return "indexing"
     if "sort" in low or "radix" in low:
         return "top-k sort"
     if any(t in low for t in ("conv", "cudnn", "gemm", "xmma", "sm90_",
@@ -281,6 +302,8 @@ def _kernel_class(name):
         return "reductions"
     if "memcpy" in low or "memset" in low:
         return "copies / memset"
+    if "direct_copy" in low:
+        return "dtype casts"
     return "elementwise / other"
 
 
@@ -376,6 +399,339 @@ def phase_small_reference():
                                    atol=1e-5)
     print("small model: card == CPU path (rtol 1e-3, atol 1e-5)")
 
+# (name, B, S, Hq, Hkv, d, dtype, causal): the first is the LM main path's
+# shape (Llama-3-8B, batch 4 x 1024 tokens)
+FLASH_CASES = [("main", 4, 1024, 32, 8, 128, "bfloat16", True),
+               ("ragged S=1000", 4, 1000, 32, 8, 128, "bfloat16", True),
+               ("S=4096 B=1", 1, 4096, 32, 8, 128, "bfloat16", True),
+               ("non-causal", 4, 1024, 32, 8, 128, "bfloat16", False),
+               ("g=1", 4, 1024, 32, 32, 128, "bfloat16", True),
+               ("d=16 f32", 4, 1024, 4, 2, 16, "float32", True)]
+# bf16: two bf16 ulps at magnitude 1 (the kernel rounds p to bf16 before
+# p v; both sides round the output to bf16). f32: summation order only.
+FLASH_TOL = {"bfloat16": (1.6e-2, 1.6e-2), "float32": (1e-5, 1e-5)}
+
+
+def _sdpa(q, k, v, causal, scale):
+    """The one-call PyTorch yardstick: scaled_dot_product_attention on
+    [B, H, S, d] views, kv heads grouped (enable_gqa)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal, scale=scale,
+        enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
+
+
+def phase_flash_attention():
+    """Kernel B4 against its plain version (f32 scores and softmax, output
+    in the input dtype) at the main path's shape and its variants: ragged S,
+    a long sequence, full attention, g = 1, and f32 at head_dim 16. Bound:
+    the larger of (q, k, v, o bytes once) / 3.35 TB/s and the flops these
+    inputs need (4 B Hq d per (query, key) pair: S (S + 1) / 2 pairs when
+    causal, S^2 when not) / the peak of the dtype's unit (989 TFLOP/s bf16
+    tensor cores, 67 TFLOP/s f32)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows, worst = [], 0.0
+    for name, B, S, Hq, Hkv, d, dtype, causal in FLASH_CASES:
+        dt = getattr(torch, dtype)
+        q = torch.randn(B, S, Hq, d, generator=gen, device=dev).to(dt)
+        k = torch.randn(B, S, Hkv, d, generator=gen, device=dev).to(dt)
+        v = torch.randn(B, S, Hkv, d, generator=gen, device=dev).to(dt)
+        scale = d ** -0.5
+        got = fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+        torch.cuda.synchronize()
+        rtol, atol = FLASH_TOL[dtype]
+        err = (got.float() - want.float()).abs()
+        bad = bool((err > atol + rtol * want.float().abs()).any())
+        max_err = float(err.max())
+        worst = max(worst, max_err)
+        ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal,
+                                                     scale=scale))
+        call_ms = _call_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, causal=causal, scale=scale))
+        plain_ms = _time_ms(lambda: ref.flash_attention_ref(
+            q, k, v, causal=causal, scale=scale), reps=5)
+        library_ms = _time_ms(lambda: _sdpa(q, k, v, causal, scale))
+        pairs = S * (S + 1) // 2 if causal else S * S
+        flops = 4 * B * Hq * d * pairs
+        nbytes = (2 * B * S * Hq * d + 2 * B * S * Hkv * d) * q.element_size()
+        peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+        bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S > flops / peak
+                    else "operations")
+        print(f"flash_attention {name:>14} B={B} S={S} Hq={Hq} Hkv={Hkv} "
+              f"d={d} {dtype} causal={causal} max_abs_err={max_err:.3e} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+              f"{library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+              f"bound_share={bound_ms / ms:.3f} call_ms={call_ms:.4f}")
+        if bad:
+            raise AssertionError(f"flash_attention disagrees with its plain "
+                                 f"version at {name}: max_abs_err {max_err}")
+        rows.append(dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         call_ms=call_ms, shape=dict(B=B, S=S, Hq=Hq, Hkv=Hkv,
+                                                     d=d, dtype=dtype,
+                                                     causal=causal)))
+        del q, k, v, got, want, err
+    top = rows[0]  # the main path's shape
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:88",
+            "launches": None, "max_abs_err": worst, "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            "call_ms": top["call_ms"], "shape": top["shape"]}
+
+
+LM_PACE = dict(min_rounds=3, mu=2, slope_lambda=5e-3, low_memory=True)
+
+
+def _expected_flash_launches(cfg, history):
+    """One launch per attention a round runs: stage t runs layers
+    [0, b_{t+1}) (frozen prefix and active block) and T - t - 1 proxy
+    layers of its output module."""
+    from repro_torch.core import freezing
+    total = 0
+    for h in history:
+        plan = freezing.make_stage_plan(cfg, h["stage"])
+        total += plan.hi + (cfg.num_freeze_blocks - h["stage"] - 1)
+    return total
+
+
+def _peak_rss_bytes():
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def phase_lm_main_path(card):
+    """Full-width Llama-3-8B through launch/train.py:train on the card: 32
+    layers, d_model 4096, 32 q / 8 kv heads, vocab 128256, bf16, random
+    params from a seed; 4 stages x 2 rounds of batch 4 x 1024 tokens, one
+    pod. The pace controller's anchored window (low_memory) keeps two host
+    copies of the 1.7 B-parameter active block instead of six. Returns the
+    flash kernel's launches and the trained params."""
+    import torch
+    from repro_torch.core import pace
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import sparse_agg
+    from repro_torch.launch.train import train
+    from repro_torch.models.module import tree_leaves
+    observe_ms = []
+    observe = pace.PaceController.observe
+
+    def timed_observe(self, block):
+        t0 = time.perf_counter()
+        out = observe(self, block)
+        observe_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    pace.PaceController.observe = timed_observe
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = sparse_agg.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train("llama3-8b", reduced=False, steps=8, batch=4, seq=1024,
+                    num_pods=1, use_pallas=True, pace_kwargs=dict(LM_PACE),
+                    log_every=1, device="cuda")
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = fa.launches
+    finally:
+        pace.PaceController.observe = observe
+    hist = out["history"]
+    for h, o_ms in zip(hist, observe_ms):
+        print(f"lm stage {h['stage']} round {h['round']} loss {h['loss']:.4f} "
+              f"round_wall_ms {h['seconds'] * 1e3:.1f} pace_observe_host_ms "
+              f"{o_ms:.1f}")
+    print(f"lm main path seconds {total_s:.2f} (model init included) on {card}")
+    print(f"lm torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated()}")
+    print(f"lm host peak rss bytes {_peak_rss_bytes()}")
+    assert [h["stage"] for h in hist] == [0, 0, 1, 1, 2, 2, 3, 3], hist
+    assert all(math.isfinite(h["loss"]) for h in hist), [h["loss"] for h in hist]
+    leaves = tree_leaves(out["params"])
+    assert all(l.device.type == "cuda" and l.dtype == torch.bfloat16
+               for l in leaves)
+    assert all(bool(torch.isfinite(l).all()) for l in leaves)
+    expected = _expected_flash_launches(out["config"], hist)
+    print(f"flash_attention launches {launches} (expected {expected})")
+    assert launches == expected == 172, (launches, expected)
+    assert sparse_agg.launches == 0
+    return launches, out["params"], out["config"]
+
+
+def _device_ms_by_class(prof):
+    import torch
+    by_class = {}
+    for row in prof.key_averages():
+        if row.device_type == torch.autograd.DeviceType.CUDA:
+            cls = _kernel_class(row.key)
+            by_class[cls] = by_class.get(cls, 0.0) + row.self_device_time_total
+    return {cls: us / 1e3 for cls, us in by_class.items()}
+
+
+def phase_lm_profile(card, params, cfg):
+    """Where an LM round's time goes, at stage 0 (8 trained layers, 3 proxy
+    layers, the largest active tree) and stage 3 (24 frozen layers, the
+    real head). A round is what train() runs per round: the federated round
+    step, then the pace controller's observe of the active block. The step:
+    one warm-up, one timed on the host clock, one under torch.profiler. The
+    observe: the warm-up's (a first snapshot) is not counted; the next one,
+    which takes the two Eq. 2 norms, is timed on the host clock and profiled
+    on its own."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import freezing
+    from repro_torch.core.pace import PaceController
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.models.transformer import build
+    from repro_torch.optim import sgd
+    dev = torch.device("cuda")
+    model = build(cfg, dev)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for stage in (0, 3):
+        plan = freezing.make_stage_plan(cfg, stage)
+        frozen, active = freezing.init_stage_active(
+            model, params, plan, torch.Generator(device=dev).manual_seed(stage))
+        step = freezing.make_fed_round_step(model, plan, sgd(3e-3),
+                                            num_pods=1, local_steps=1,
+                                            remat=False)
+        ctl = PaceController(**LM_PACE)
+        w = torch.ones(1, device=dev)
+        box = {"active": active}
+
+        def one_step(r):
+            data = make_lm_batch(cfg, 4, 1024, seed=r)
+            fed = {k: torch.as_tensor(v, device=dev).reshape(1, 1, 4, 1024)
+                   for k, v in data.items()}
+            box["active"], met = step(box["active"], frozen, fed, w)
+            float(met["loss"])
+            torch.cuda.synchronize()
+
+        one_step(0)
+        ctl.observe(box["active"]["runs"])
+        t0 = time.perf_counter()
+        one_step(1)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=acts) as prof:
+            one_step(2)
+        step_dev = _device_ms_by_class(prof)
+        t0 = time.perf_counter()
+        with profile(activities=acts) as prof:
+            ctl.observe(box["active"]["runs"])
+            torch.cuda.synchronize()
+        obs_ms = (time.perf_counter() - t0) * 1e3
+        obs_dev = _device_ms_by_class(prof)
+        print(f"lm profile stage {stage} on {card}: round step wall_ms "
+              f"{step_ms:.1f}, pace observe host_ms {obs_ms:.1f}")
+        if not step_dev:
+            print("  torch.profiler recorded no device time: not measured")
+        else:
+            busy, obs_busy = sum(step_dev.values()), sum(obs_dev.values())
+            print(f"  step: device busy ms {busy:.1f}, idle share "
+                  f"{1 - busy / step_ms:.3f}")
+            for cls, ms in sorted(step_dev.items(), key=lambda kv: -kv[1]):
+                print(f"  {cls:>20}: {ms:9.2f} ms")
+            print(f"  observe: device busy ms {obs_busy:.1f} ("
+                  + ", ".join(f"{c} {m:.1f}" for c, m in sorted(
+                      obs_dev.items(), key=lambda kv: -kv[1])) + ")")
+            print(f"  round (step + observe): idle share "
+                  f"{1 - (busy + obs_busy) / (step_ms + obs_ms):.3f}")
+        print(f"  chunked CE loss, forward + backward alone: "
+              f"{_ce_ms(box['active'], plan, cfg):.2f} ms (its GEMMs and "
+              f"reductions are inside the classes above)")
+        del frozen, active, box, step, ctl
+    del model
+
+
+def _ce_ms(active, plan, cfg):
+    """Device ms of the chunked CE loss, forward and backward, at the LM
+    round's shape: hidden [4, 1024, d_model] bf16 against the stage's head,
+    CUDA events around 3 calls after a warm-up."""
+    import torch
+    from repro_torch.models.transformer import chunked_ce_loss
+    dev = torch.device("cuda")
+    head = (active["head"] if plan.final else active["op"]["head"])["w"]
+    head = head.detach().requires_grad_()
+    h = torch.randn(4, 1024, cfg.d_model, device=dev).to(torch.bfloat16)
+    h.requires_grad_()
+    labels = torch.randint(0, cfg.vocab_size, (4, 1024), device=dev)
+
+    def run():
+        loss = chunked_ce_loss(h, head, {"labels": labels}, cfg)
+        torch.autograd.grad(loss, (h, head))
+
+    run()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 3
+
+
+def phase_small_lm_reference():
+    """The LM path on the card against the port's CPU path (itself held
+    against the JAX package by tests/test_torch_lm.py), on the reduced
+    Llama-3-8B in float32 (4 layers, d_model 64, 4 q / 4 kv heads, 2
+    stages x 1 round, batch 2 x 64 tokens). Both runs draw their params
+    and output modules from CPU generators of the same seeds, so they start
+    equal. Tolerance rtol 1e-3, atol 1e-5 on losses and final params (f32
+    on both devices, summed in other orders; the bf16 output modules can
+    flip a rounding)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import freezing
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer
+    from repro_torch.models.module import tree_leaves
+    name = "llama3-8b-f32"
+    configs.register(dataclasses.replace(configs.get("llama3-8b"), name=name,
+                                         param_dtype="float32",
+                                         compute_dtype="float32"))
+    lm_init, stage_init = transformer.LM.init, freezing.init_stage_active
+
+    def cpu_lm_init(self, generator):
+        return lm_init(self, torch.Generator().manual_seed(
+            generator.initial_seed()))
+
+    def cpu_stage_init(model, params, plan, generator):
+        return stage_init(model, params, plan, torch.Generator().manual_seed(
+            generator.initial_seed()))
+
+    transformer.LM.init = cpu_lm_init
+    freezing.init_stage_active = cpu_stage_init
+    try:
+        results = {}
+        for device in ("cpu", "cuda"):
+            before = fa.launches
+            results[device] = train(name, reduced=True, steps=2, batch=2,
+                                    seq=64, use_pallas=True, log_every=100,
+                                    device=device)
+            assert (fa.launches > before) == (device == "cuda")
+    finally:
+        transformer.LM.init, freezing.init_stage_active = lm_init, stage_init
+    a, b = results["cpu"], results["cuda"]
+    assert len(a["history"]) == len(b["history"]) == 2
+    for x, y in zip(a["history"], b["history"]):
+        assert (x["stage"], x["round"]) == (y["stage"], y["round"])
+        np.testing.assert_allclose(y["loss"], x["loss"], rtol=1e-3, atol=1e-5)
+    for x, y in zip(tree_leaves(a["params"]), tree_leaves(b["params"])):
+        assert y.device.type == "cuda"
+        np.testing.assert_allclose(y.float().cpu().numpy(), x.float().numpy(),
+                                   rtol=1e-3, atol=1e-5)
+    print("small LM: card == CPU path (rtol 1e-3, atol 1e-5)")
+
 
 def main():
     import torch
@@ -385,7 +741,12 @@ def main():
     entry["launches"] = phase_main_path(card)
     phase_profile(card)
     phase_small_reference()
-    print(json.dumps({"kernels": [entry]}))
+    flash = phase_flash_attention()
+    flash["launches"], params, cfg = phase_lm_main_path(card)
+    phase_lm_profile(card, params, cfg)
+    del params
+    phase_small_lm_reference()
+    print(json.dumps({"kernels": [entry, flash]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,16 +1,58 @@
-"""Position-preserving CNN output modules (paper §IV-A; counterpart of the
-CNN part of ``repro/core/output_module.py``).
+"""Position-preserving output modules (paper §IV-A; counterpart of
+``repro/core/output_module.py``).
 
-The block being trained sees a stage-appropriate downstream: each
-not-yet-trained stage is emulated by one stride-matched conv layer, then a
-global pool and an FC head.
+The block being trained sees a stage-appropriate downstream:
+
+* CNNs: each not-yet-trained stage is emulated by one stride-matched conv
+  layer, then a global pool and an FC head;
+* LMs: one slim proxy layer per remaining block (the arch's own attention,
+  a d_ff = d_model MLP), then a norm and a stage-local LM head.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from repro_torch.models.layers import conv2d, conv2d_init
-from repro_torch.models.module import ParamFactory, Params
+from repro_torch.models.layers import (conv2d, conv2d_init, dense_init, norm,
+                                       norm_init)
+from repro_torch.models.module import (ParamFactory, Params, init_stack,
+                                       tree_leaves)
+
+
+def _proxy_cfg(cfg):
+    """The slim proxy layer's config: the arch's attention geometry, a
+    d_ff = d_model MLP."""
+    return dataclasses.replace(cfg, d_ff=cfg.d_model, attention="gqa",
+                               num_experts=0, num_shared_experts=0,
+                               experts_per_token=0)
+
+
+def lm_op_init(fac: ParamFactory, cfg, stage: int) -> Params:
+    """Output module for stage t: (T - t - 1) proxy layers + norm + head."""
+    from repro_torch.models.transformer import layer_init
+
+    pcfg = _proxy_cfg(cfg)
+    n_proxy = max(cfg.num_freeze_blocks - stage - 1, 0)
+    p: Params = {}
+    if n_proxy:
+        p["proxy"] = init_stack(fac, n_proxy,
+                                lambda f: layer_init(f, pcfg, "attn_mlp"))
+    p["norm"] = norm_init(fac, cfg.d_model, cfg.norm)
+    p["head"] = dense_init(fac, cfg.d_model, cfg.vocab_size)
+    return p
+
+
+def lm_op_hidden(p: Params, h: torch.Tensor, cfg) -> torch.Tensor:
+    """Proxy layers + norm (the head is applied by the chunked CE loss)."""
+    from repro_torch.models.transformer import layer_apply, layer_at
+
+    pcfg = _proxy_cfg(cfg)
+    if "proxy" in p:
+        for i in range(tree_leaves(p["proxy"])[0].shape[0]):
+            h, _ = layer_apply(layer_at(p["proxy"], i), h, pcfg, "attn_mlp",
+                               causal=not cfg.is_encoder_only)
+    return norm(p["norm"], h, cfg.norm, cfg.norm_eps)
 
 
 def cnn_op_init(fac: ParamFactory, cnn_cfg, stage: int) -> Params:

@@ -1,6 +1,7 @@
 from repro_torch.data.partition import (dirichlet_partition, iid_partition,
                                         label_distribution)
-from repro_torch.data.synthetic import SyntheticVision
+from repro_torch.data.synthetic import (SyntheticLM, SyntheticVision,
+                                        make_lm_batch)
 
-__all__ = ["SyntheticVision", "dirichlet_partition", "iid_partition",
-           "label_distribution"]
+__all__ = ["SyntheticLM", "SyntheticVision", "dirichlet_partition",
+           "iid_partition", "label_distribution", "make_lm_batch"]

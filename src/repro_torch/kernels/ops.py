@@ -2,12 +2,17 @@
 
 A CUDA tensor goes to the kernel, which launches or raises. A CPU tensor
 takes the kernel's plain version in ``kernels/ref.py``, and that is the
-only case in which the plain version runs.
+only case in which a forward runs the plain version. Flash attention's
+backward is autograd through its plain version on either device: the
+reference has no backward kernel either.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref, sparse_agg
 
 
@@ -18,3 +23,35 @@ def sparse_cohort_add(idx: torch.Tensor, vals: torch.Tensor,
     if idx.device.type == "cpu":
         return ref.sparse_cohort_add_ref(idx, vals, weights, length)
     return sparse_agg.sparse_cohort_add(idx, vals, weights, length)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the kernel on CUDA tensors, ``flash_attention_ref`` on CPU
+    tensors. Backward: autograd through ``flash_attention_ref`` on the saved
+    inputs, the reference's recompute contract (its custom_vjp backward
+    differentiates the XLA oracle); there is no backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        if q.device.type == "cpu":
+            return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+        return fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = ref.flash_attention_ref(q, k, v, causal=ctx.causal,
+                                          scale=ctx.scale)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale: Optional[float] = None
+                    ) -> torch.Tensor:
+    """Differentiable flash attention, q [B, S, Hq, d], k/v [B, S, Hkv, d]
+    (``kernels/flash_attention.py``)."""
+    return _FlashAttention.apply(q, k, v, causal, scale)

@@ -15,3 +15,21 @@ def sparse_cohort_add_ref(idx: torch.Tensor, vals: torch.Tensor,
     contrib = (weights.float()[:, None] * vals.float()).reshape(-1)
     return torch.zeros(length, dtype=torch.float32, device=vals.device
                        ).index_add_(0, idx.reshape(-1).long(), contrib)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, scale=None) -> torch.Tensor:
+    """Softmax attention, q [B, S, Hq, d], k/v [B, S, Hkv, d]: kv heads
+    repeated to Hq (q head h reads kv head h // (Hq / Hkv)), f32 scores,
+    masked entries -1e30, output in q's dtype."""
+    B, S, Hq, d = q.shape
+    g = Hq // k.shape[2]
+    k = k.repeat_interleave(g, dim=2)
+    v = v.repeat_interleave(g, dim=2)
+    scale = scale if scale is not None else d ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)

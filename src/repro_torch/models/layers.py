@@ -1,5 +1,9 @@
-"""CNN layer primitives (counterpart of the conv / batchnorm / dense parts
-of ``repro/models/layers.py``).
+"""Layer primitives (counterpart of ``repro/models/layers.py``): dense,
+the LM's norms, activations and RoPE, and the CNN's conv and batchnorm.
+
+Norms compute in float32 and cast back to the input dtype, and RoPE
+rotates in float32, as the reference does; a bfloat16 model rounds at the
+same places.
 
 Public tensors are NHWC and conv weights are stored HWIO, as in the
 reference. ``x.permute(0, 3, 1, 2)`` of an NHWC tensor is an NCHW view in
@@ -29,6 +33,66 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+def rmsnorm_init(fac: ParamFactory, d: int) -> Params:
+    return {"scale": fac.param((d,), init="ones")}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+def layernorm_init(fac: ParamFactory, d: int) -> Params:
+    return {"scale": fac.param((d,), init="ones"),
+            "bias": fac.param((d,), init="zeros")}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
+def norm_init(fac: ParamFactory, d: int, kind: str) -> Params:
+    return layernorm_init(fac, d) if kind == "layernorm" else rmsnorm_init(fac, d)
+
+
+def norm(p: Params, x: torch.Tensor, kind: str, eps: float = 1e-5
+         ) -> torch.Tensor:
+    return layernorm(p, x, eps) if kind == "layernorm" else rmsnorm(p, x, eps)
+
+
+def activation(name: str):
+    """``jax.nn``'s activations; its gelu is the tanh approximation."""
+    return {"silu": F.silu, "relu": F.relu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies, shape [head_dim // 2], float32."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: [..., seq, heads, head_dim]; positions: [..., seq]. Rotates the
+    two halves of the head dim in float32 and casts back."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)
+    angles = positions[..., :, None].float() * freqs
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 def conv2d_init(fac: ParamFactory, c_in: int, c_out: int, k: int, *,

@@ -5,9 +5,13 @@ order at every level — the order ``jax.tree.leaves`` uses for dicts — so a
 flattened tree (pace-controller snapshots, error-feedback rows, top-k
 payloads) is laid out exactly as the reference lays it out.
 
-``ParamFactory`` draws initial values from a caller-seeded
-``torch.Generator``. ``jax.random`` streams cannot be reproduced, so parity
+``ParamFactory`` (the reference's ``PFac``) draws initial values from a
+caller-seeded ``torch.Generator``, on the generator's device, in an
+explicit dtype. ``jax.random`` streams cannot be reproduced, so parity
 tests carry the reference's initial params across with ``convert.py``.
+``init_stack`` and ``slice_stack`` give the LM's stacked layers: every leaf
+of a stack has a leading [n_layers] dim, as ``jax.lax.scan`` wants it in
+the reference.
 """
 from __future__ import annotations
 
@@ -54,31 +58,52 @@ def param_count(tree) -> int:
 
 
 class ParamFactory:
-    """Creates parameters on ``device`` from ``generator`` (a CPU
-    ``torch.Generator``, so the values do not depend on the device)."""
+    """Creates parameters on ``device`` in ``dtype`` from ``generator``.
+
+    Values are drawn on the generator's device (a CPU generator makes the
+    values independent of ``device``; a CUDA generator draws a model too
+    large for the host straight on the card) and moved to ``device``.
+    ``stack=n`` prepends a [n] dim to every parameter, with each layer's
+    fan-in unchanged (``init_stack``)."""
 
     def __init__(self, generator: torch.Generator, device="cpu",
-                 dtype=torch.float32):
+                 dtype=torch.float32, stack: int = 0):
         self.generator = generator
         self.device = torch.device(device)
         self.dtype = dtype
+        self.stack = stack
 
     def param(self, shape: Tuple[int, ...], *, init: str = "normal",
               scale: float = 1.0, fan_in: Optional[int] = None
               ) -> torch.Tensor:
         """``normal`` draws N(0, (scale / sqrt(fan_in))^2) with the
-        reference's default fan-in (``shape[0]`` for matrices), as
-        ``PFac.param`` does."""
+        reference's default fan-in (``shape[0]`` for matrices), ``embed``
+        N(0, scale^2), as ``PFac.param`` does."""
+        full = ((self.stack,) if self.stack else ()) + tuple(shape)
         if init == "zeros":
-            t = torch.zeros(shape, dtype=self.dtype)
-        elif init == "ones":
-            t = torch.ones(shape, dtype=self.dtype)
-        elif init == "normal":
+            return torch.zeros(full, dtype=self.dtype, device=self.device)
+        if init == "ones":
+            return torch.ones(full, dtype=self.dtype, device=self.device)
+        if init == "normal":
             fi = fan_in if fan_in is not None else (
                 shape[0] if len(shape) > 1 else shape[-1])
             std = scale / math.sqrt(max(fi, 1))
-            t = torch.randn(shape, generator=self.generator,
-                            dtype=torch.float32).mul_(std).to(self.dtype)
+        elif init == "embed":
+            std = scale
         else:
             raise ValueError(f"unknown init {init}")
-        return t.to(self.device)
+        t = torch.randn(full, generator=self.generator,
+                        device=self.generator.device, dtype=torch.float32)
+        return t.mul_(std).to(self.dtype).to(self.device)
+
+
+def init_stack(fac: ParamFactory, n: int,
+               layer_init: Callable[[ParamFactory], Params]) -> Params:
+    """``n`` stacked copies of a layer: every leaf gets a leading [n] dim."""
+    return layer_init(ParamFactory(fac.generator, fac.device, fac.dtype,
+                                   stack=n))
+
+
+def slice_stack(stacked: Params, lo: int, hi: int) -> Params:
+    """Layers [lo, hi) of every stacked leaf (views, no copy)."""
+    return tree_map(lambda x: x[lo:hi], stacked)

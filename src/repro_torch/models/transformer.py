@@ -1,0 +1,199 @@
+"""The dense LM: embed -> stacked attn_mlp layers -> head (counterpart of
+the dense part of ``repro/models/transformer.py``).
+
+``LM`` exposes the decomposed interface SmartFreeze's progressive trainer
+needs: ``embed`` / ``run_layers(lo, hi)`` / ``head``. Layers are stored
+stacked (every leaf has a leading [n_layers] dim, as the reference's scan
+wants), and ``run_layers`` walks a Python loop over slices of the stack.
+
+Only the ``attn_mlp`` layer kind is ported; MoE, SSM and hybrid kinds,
+modality frontends and decode wait for ROADMAP A15.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Tuple
+
+import torch
+import torch.utils.checkpoint as ckpt
+
+from repro_torch._device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (activation, dense, dense_init, norm,
+                                       norm_init)
+from repro_torch.models.module import ParamFactory, Params, init_stack
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _dt(name: str) -> torch.dtype:
+    return DTYPES[name]
+
+
+def _check_kind(kind: str) -> None:
+    if kind != "attn_mlp":
+        raise NotImplementedError(f"layer kind {kind!r} is not ported "
+                                  "(ROADMAP A15)")
+
+
+def mlp_init(fac: ParamFactory, cfg, d_ff: int) -> Params:
+    d = cfg.d_model
+    return {"gate": dense_init(fac, d, d_ff), "up": dense_init(fac, d, d_ff),
+            "down": dense_init(fac, d_ff, d)}
+
+
+def mlp_apply(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    act = activation(cfg.mlp_activation)
+    return dense(p["down"], act(dense(p["gate"], x)) * dense(p["up"], x))
+
+
+def layer_init(fac: ParamFactory, cfg, kind: str) -> Params:
+    _check_kind(kind)
+    return {"ln1": norm_init(fac, cfg.d_model, cfg.norm),
+            "attn": attn.attn_init(fac, cfg),
+            "ln2": norm_init(fac, cfg.d_model, cfg.norm),
+            "mlp": mlp_init(fac, cfg, cfg.d_ff)}
+
+
+def layer_apply(p: Params, x: torch.Tensor, cfg, kind: str, *,
+                causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence layer. Returns (y, aux_loss); a dense layer's aux loss
+    is 0."""
+    _check_kind(kind)
+    h = x + attn.attn_forward(p["attn"], norm(p["ln1"], x, cfg.norm,
+                                              cfg.norm_eps), cfg, causal=causal)
+    y = mlp_apply(p["mlp"], norm(p["ln2"], h, cfg.norm, cfg.norm_eps), cfg)
+    return h + y, torch.zeros((), device=x.device)
+
+
+def layer_at(stacked: Params, i: int) -> Params:
+    """Layer i of a stacked tree (views)."""
+    if isinstance(stacked, dict):
+        return {k: layer_at(v, i) for k, v in stacked.items()}
+    return stacked[i]
+
+
+@dataclass
+class LM:
+    """``device`` is where ``init`` places the params; it defaults to the
+    card and raises when CUDA is absent (tests pass ``device="cpu"``)."""
+    cfg: object
+    device: torch.device = "cuda"
+
+    def __post_init__(self):
+        if self.cfg.family != "dense" or self.cfg.attention != "gqa":
+            raise NotImplementedError(
+                f"{self.cfg.name}: only the dense GQA family is ported "
+                "(ROADMAP A15)")
+        self.device = resolve_device(self.device)
+
+    def _build(self, fac: ParamFactory) -> Params:
+        cfg = self.cfg
+        p: Params = {"embed": fac.param((cfg.vocab_size, cfg.d_model),
+                                        init="embed", scale=0.02)}
+        p["segments"] = {str(i): init_stack(fac, n, lambda f, k=kind:
+                                            layer_init(f, cfg, k))
+                         for i, (kind, n) in enumerate(cfg.segments())}
+        p["final_norm"] = norm_init(fac, cfg.d_model, cfg.norm)
+        if not cfg.tie_embeddings:
+            p["head"] = dense_init(fac, cfg.d_model, cfg.vocab_size)
+        return p
+
+    def init(self, generator: torch.Generator) -> Params:
+        """Params in ``cfg.param_dtype`` on the model's device, drawn from
+        ``generator`` on the generator's own device."""
+        return self._build(ParamFactory(generator, self.device,
+                                        _dt(self.cfg.param_dtype)))
+
+    def _seg_table(self) -> List[Tuple[str, int, int, int]]:
+        """(kind, seg_index, layer_lo, layer_hi) per segment."""
+        out, lo = [], 0
+        for i, (kind, n) in enumerate(self.cfg.segments()):
+            out.append((kind, i, lo, lo + n))
+            lo += n
+        return out
+
+    def embed(self, params: Params, batch: Dict) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.modality != "text":
+            raise NotImplementedError(f"modality {cfg.modality!r} is not "
+                                      "ported (ROADMAP A15)")
+        return params["embed"][batch["tokens"]].to(_dt(cfg.compute_dtype))
+
+    def run_layers(self, params: Params, h: torch.Tensor, lo: int, hi: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Run layers [lo, hi) full-sequence. Returns (h, aux_loss)."""
+        causal = not self.cfg.is_encoder_only
+        aux = torch.zeros((), device=h.device)
+        for kind, si, s_lo, s_hi in self._seg_table():
+            stacked = params["segments"][str(si)]
+            for i in range(max(lo, s_lo), min(hi, s_hi)):
+                h, al = layer_apply(layer_at(stacked, i - s_lo), h, self.cfg,
+                                    kind, causal=causal)
+                aux = aux + al
+        return h, aux
+
+    def head(self, params: Params, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+        if cfg.tie_embeddings:
+            return h @ params["embed"].T.to(h.dtype)
+        return dense(params["head"], h)
+
+    def forward(self, params: Params, batch: Dict
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full forward. Returns (logits, aux_loss)."""
+        h, aux = self.run_layers(params, self.embed(params, batch), 0,
+                                 self.cfg.num_layers)
+        return self.head(params, h), aux
+
+    def loss(self, params: Params, batch: Dict) -> torch.Tensor:
+        """Chunked-CE loss: never holds [B, S, V] logits."""
+        cfg = self.cfg
+        h, aux = self.run_layers(params, self.embed(params, batch), 0,
+                                 cfg.num_layers)
+        h = norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+        head_w = params["embed"].T if cfg.tie_embeddings else params["head"]["w"]
+        return chunked_ce_loss(h, head_w, batch, cfg) + 0.01 * aux
+
+
+def token_loss(logits: torch.Tensor, batch: Dict, cfg) -> torch.Tensor:
+    """Mean cross-entropy against batch['labels'] (labels < 0 masked)."""
+    labels = batch["labels"]
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.clamp(min=0)[..., None].long())[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((logz - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
+
+
+def _chunk_loss(h_c: torch.Tensor, y_c: torch.Tensor, head_w: torch.Tensor):
+    logits = (h_c @ head_w.to(h_c.dtype)).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, y_c.clamp(min=0)[..., None].long())[..., 0]
+    m = (y_c >= 0).float()
+    return torch.sum((logz - gold) * m), torch.sum(m)
+
+
+def chunked_ce_loss(h: torch.Tensor, head_w: torch.Tensor, batch: Dict, cfg,
+                    *, chunk: int = 512) -> torch.Tensor:
+    """Cross-entropy without holding [B, S, V] logits: sequence chunks, each
+    checkpointed, so the backward recomputes one chunk's f32 logits at a
+    time. head_w: [d, V]."""
+    labels = batch["labels"]
+    B, S, d = h.shape
+    c = min(chunk, S)
+    while S % c:
+        c -= 1
+    total = torch.zeros((), device=h.device)
+    count = torch.zeros((), device=h.device)
+    for i in range(0, S, c):
+        l, m = ckpt.checkpoint(_chunk_loss, h[:, i:i + c], labels[:, i:i + c],
+                               head_w, use_reentrant=False)
+        total = total + l
+        count = count + m
+    return total / torch.clamp(count, min=1.0)
+
+
+def build(cfg, device="cuda") -> LM:
+    return LM(cfg, device)

@@ -154,12 +154,25 @@ def test_unported_policies_and_run_arguments_raise():
 
 
 def test_port_imports_without_jax_or_reference():
+    """Every module of the port imports with JAX and the JAX package
+    blocked, the LM slice's modules among them, and registering the dense
+    configs pulls in nothing of either; chip_smoke.py imports neither."""
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
             "import pkgutil, importlib, repro_torch\n"
-            "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
-            "    importlib.import_module(m.name)\n"
+            "names = [m.name for m in pkgutil.walk_packages("
+            "repro_torch.__path__, 'repro_torch.')]\n"
+            "for n in names:\n"
+            "    importlib.import_module(n)\n"
+            "for n in ('repro_torch.configs.llama3_8b', "
+            "'repro_torch.models.attention', 'repro_torch.models.transformer', "
+            "'repro_torch.core.freezing', 'repro_torch.kernels.flash_attention', "
+            "'repro_torch.launch.train'):\n"
+            "    assert n in names, n\n"
+            "from repro_torch import configs\n"
+            "assert configs.names() == ['deepseek-coder-33b', 'llama3-8b', "
+            "'qwen2-72b']\n"
             "assert not any(k == 'jax' or k.startswith('jax.') or k == 'repro' "
             "or k.startswith('repro.') for k, v in sys.modules.items() "
             "if v is not None)\n")
@@ -167,3 +180,10 @@ def test_port_imports_without_jax_or_reference():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+    import ast
+    tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
+    imported = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names}
+    imported |= {n.module for n in ast.walk(tree)
+                 if isinstance(n, ast.ImportFrom) and n.module}
+    assert not any(m.split(".")[0] in ("jax", "repro") for m in imported)
