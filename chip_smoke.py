@@ -26,7 +26,19 @@ Phases, each of which exits non-zero on failure:
   9. profile one stage-0 and one stage-3 LM round: device time by kernel
      class and the device's idle share;
  10. check the card's LM result against the port's CPU path on a small
-     model.
+     model;
+ 11. free the training phases' memory, then hold the flash-decode kernel
+     (B6) against its plain version at the Llama-3-8B serving shape, the
+     decode_32k cut and its variants, with its times;
+ 12. drive the serving path: ``launch/serve.py:serve`` on full-width
+     Llama-3-8B (batch 8, 960 prompt + 64 generated tokens: 1,024 decode
+     steps), with every kernel's launch count set to 0 just before and read
+     just after;
+ 13. time and profile one full-width decode step at length 1,024 and one
+     at the decode_32k cut (batch 8 x 32,768 cached tokens): device time
+     by kernel class and the device's idle share;
+ 14. check the card's serving result against the port's CPU path on a
+     small model.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -287,6 +299,8 @@ def _kernel_class(name):
         return "sparse_cohort_add"
     if "flash_fwd" in low:
         return "flash_attention (B4)"
+    if "decode_split" in low or "decode_merge" in low:
+        return "decode_attention (B6)"
     if "softmax" in low:
         return "softmax"
     if "nvjet" in low or "cublas" in low or "cutlass" in low:
@@ -733,6 +747,351 @@ def phase_small_lm_reference():
     print("small LM: card == CPU path (rtol 1e-3, atol 1e-5)")
 
 
+# (name, B, S, Hq, Hkv, d, dtype, lengths): the first three are the serving
+# path's shape (Llama-3-8B, batch 8, a 1,024-token cache) at three lengths;
+# the fourth the decode_32k cut (DECODE_32K.seq_len, batch 128 cut to 8)
+def _decode_cases():
+    from repro_torch.configs import DECODE_32K
+    S32 = DECODE_32K.seq_len
+    return [("serve len=1", 8, 1024, 32, 8, 128, "bfloat16", [1] * 8),
+            ("serve len=512", 8, 1024, 32, 8, 128, "bfloat16", [512] * 8),
+            ("serve len=1024", 8, 1024, 32, 8, 128, "bfloat16", [1024] * 8),
+            ("decode_32k cut", 8, S32, 32, 8, 128, "bfloat16",
+             [0, S32, 1, 4097, 12345, 20000, 31999, 32767]),
+            ("g=1", 8, 1024, 32, 32, 128, "bfloat16", [1024] * 8),
+            ("ragged S=1000", 8, 1000, 32, 8, 128, "bfloat16",
+             [1000, 999, 1, 500, 0, 64, 65, 1000]),
+            ("d=16 f32", 8, 1024, 32, 8, 16, "float32", [1024] * 8),
+            ("d=64 f32", 8, 1024, 32, 8, 64, "float32",
+             [1024, 0, 7, 513, 1024, 100, 1023, 2])]
+
+
+# (rtol, atol) of |err| <= atol + rtol |plain|. bf16: rtol 2^-7 is one or
+# two ulps of the output's own magnitude (both versions sum in f32 in
+# another order and round once to bf16), atol 1e-6 only covers outputs near
+# zero. f32: summation order only. Every case also checks that the plain
+# version one row short (length - 1) breaks the bound in every row it
+# changes, so that an off-by-one kernel could not pass it.
+DECODE_TOL = {"bfloat16": (2 ** -7, 1e-6), "float32": (1e-5, 1e-5)}
+
+
+def _bf16_ulps(got, want) -> int:
+    """Largest distance, in bf16 ulps, between two bf16 tensors: sign and
+    magnitude bit patterns mapped onto one ordered integer line."""
+    import torch
+
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return int((ordered(got) - ordered(want)).abs().max())
+L2_BYTES = 50 * 2 ** 20
+
+
+def _time_cold_ms(fns, reps=24):
+    """Device milliseconds per call, cycling through ``fns`` (one per copy
+    of the inputs, enough copies that a copy's cache rows have left the
+    50 MB L2 before its next turn, as the serving path finds them after a
+    step's other layers), CUDA events around ``reps`` calls behind a sleep
+    kernel as ``_time_ms``."""
+    import torch
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for i in range(reps):
+        fns[i % len(fns)]()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_decode_attention():
+    """Kernel B6 against its plain version at the serving shape and its
+    variants: the kernel, the plain version and the one-call PyTorch
+    yardstick (``scaled_dot_product_attention`` on a [B, Hq, 1, d] query
+    with kv pre-transposed to [B, Hkv, S, d] outside the timed region, a
+    boolean length mask and ``enable_gqa``; it is compared on rows with
+    length > 0 only, since it has no answer for an empty row). Bound: the
+    bytes the function must move (K and V rows below each row's length, q
+    and the output once) over 3.35 TB/s, against the flops these rows need
+    (4 d per (q head, cached row)) at the peak of the input dtype."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows, worst = [], 0.0
+    for name, B, S, Hq, Hkv, d, dtype, lengths in _decode_cases():
+        dt = getattr(torch, dtype)
+        elt = torch.tensor([], dtype=dt).element_size()
+        kv_bytes = 2 * B * S * Hkv * d * elt
+        copies = max(1, -(-3 * L2_BYTES // kv_bytes) + 1)
+        sets = []
+        for _ in range(copies):
+            q = torch.randn(B, Hq, d, generator=gen, device=dev).to(dt)
+            k = torch.randn(B, S, Hkv, d, generator=gen, device=dev).to(dt)
+            v = torch.randn(B, S, Hkv, d, generator=gen, device=dev).to(dt)
+            sets.append((q, k, v))
+        length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        q, k, v = sets[0]
+        got = dec.decode_attention(q, k, v, length)
+        want = ref.decode_attention_ref(q, k, v, length)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        rtol, atol = DECODE_TOL[dtype]
+        bad = bool((err > atol + rtol * want.float().abs()).any())
+        max_err = float(err.max())
+        ulps = _bf16_ulps(got, want) if dtype == "bfloat16" else None
+        short = ref.decode_attention_ref(q, k, v, (length - 1).clamp(min=0))
+        short_err = (short.float() - want.float()).abs()
+        # every row the shortening changes must break the bound somewhere
+        changed = (length >= 1) & (length <= S)
+        sees_off_by_one = bool(
+            (short_err > atol + rtol * want.float().abs()).flatten(1).any(1)
+            [changed].all())
+        del short, short_err
+        worst = max(worst, max_err)
+        empty_ok = bool((got[length == 0] == 0).all())
+        ms = _time_cold_ms([lambda s=s: dec.decode_attention(*s, length)
+                            for s in sets])
+        call_ms = _call_ms(lambda: dec.decode_attention(q, k, v, length))
+        plain_ms = _time_cold_ms([lambda s=s: ref.decode_attention_ref(
+            *s, length) for s in sets], reps=max(3, len(sets)))
+        mask = (torch.arange(S, device=dev)[None, :] < length[:, None]
+                )[:, None, None, :]
+        tsets = [(s[0][:, :, None], s[1].transpose(1, 2).contiguous(),
+                  s[2].transpose(1, 2).contiguous()) for s in sets]
+
+        def sdpa(t):
+            return F.scaled_dot_product_attention(t[0], t[1], t[2],
+                                                  attn_mask=mask,
+                                                  enable_gqa=Hq != Hkv)
+        library_ms = _time_cold_ms([lambda t=t: sdpa(t) for t in tsets])
+        live = length > 0
+        lib_err = float((sdpa(tsets[0])[:, :, 0].float() - want.float())
+                        .abs()[live].max())
+        del tsets
+        valid = sum(min(max(n, 0), S) for n in lengths)
+        nbytes = (2 * valid * Hkv * d + 2 * B * Hq * d) * elt + 4 * B
+        flops = 4 * valid * Hq * d
+        peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+        bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / peak
+                    else "operations")
+        gc, n_chunks, chunk_rows, splits = dec.plan(
+            B, S, Hq, Hkv, dec._sm_count(0))
+        print(f"decode_attention {name:>15} B={B} S={S} Hq={Hq} Hkv={Hkv} "
+              f"d={d} {dtype} splits={splits}x{chunk_rows} copies={copies} "
+              f"max_abs_err={max_err:.3e} max_ulps={ulps} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms:.4f} (err {lib_err:.3e}) "
+              f"bound_ms={bound_ms:.4f} ({bound_by}) "
+              f"bound_share={bound_ms / ms:.3f} call_ms={call_ms:.4f}")
+        if bad or not empty_ok:
+            raise AssertionError(f"decode_attention disagrees with its plain "
+                                 f"version at {name}: max_abs_err {max_err}, "
+                                 f"empty rows zero: {empty_ok}")
+        if not sees_off_by_one:
+            raise AssertionError(f"the tolerance at {name} does not tell the "
+                                 "plain version from itself one row short")
+        rows.append(dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         call_ms=call_ms, shape=dict(
+                             B=B, S=S, Hq=Hq, Hkv=Hkv, d=d, dtype=dtype,
+                             length=max(lengths))))
+        del sets, q, k, v, got, want, err
+        torch.cuda.empty_cache()
+    top = rows[2]  # the serving path's shape with a full cache
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:25",
+            "launches": None, "max_abs_err": worst, "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            "call_ms": top["call_ms"], "shape": top["shape"]}
+
+
+SERVE = dict(batch=8, prompt_len=960, gen_len=64)
+
+
+def phase_serve(card):
+    """Full-width Llama-3-8B through launch/serve.py:serve on the card: 32
+    layers, d_model 4096, 32 q / 8 kv heads, vocab 128256, bf16, random
+    params from a seed; batch 8, a 960-token prompt stepped one token at a
+    time, then 64 greedy tokens: 1,024 decode steps over a 1,024-row cache.
+    The last step's logits are kept (by a wrapper that only records them)
+    to check that they are finite. Returns B6's launches."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import sparse_agg
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer
+    cfg = configs.get("llama3-8b")
+    steps = SERVE["prompt_len"] + SERVE["gen_len"]
+    step, last = transformer.LM.decode_step, {}
+
+    def recording_step(self, *args, **kwargs):
+        last["logits"], cache = step(self, *args, **kwargs)
+        return last["logits"], cache
+
+    transformer.LM.decode_step = recording_step
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        dec.launches = fa.launches = sparse_agg.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = serve("llama3-8b", reduced=False, device="cuda", **SERVE)
+        total_s = time.perf_counter() - t0
+        launches = dec.launches
+    finally:
+        transformer.LM.decode_step = step
+    gen = out["generated"]
+    loop_s = SERVE["batch"] * SERVE["gen_len"] / out["tokens_per_s"]
+    print(f"serve tokens_per_s {out['tokens_per_s']:.2f} (generated tokens "
+          f"over the whole {steps}-step loop), ms_per_decode_step "
+          f"{loop_s * 1e3 / steps:.3f}, loop seconds {loop_s:.3f}, with "
+          f"model init {total_s:.2f} on {card}")
+    print(f"serve torch.cuda.max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()}")
+    print(f"serve generated[0, :16] {gen[0, :16].tolist()}")
+    print(f"decode_attention launches {launches} (expected "
+          f"{cfg.num_layers * steps})")
+    assert launches == cfg.num_layers * steps == 32_768, launches
+    assert fa.launches == 0 and sparse_agg.launches == 0
+    assert gen.shape == (SERVE["batch"], SERVE["gen_len"])
+    assert gen.dtype == np.int32 and gen.min() >= 0
+    assert gen.max() < cfg.vocab_size
+    logits = last.pop("logits")
+    assert logits.shape == (SERVE["batch"], 1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits.float()).all())
+    return launches
+
+
+def phase_decode_profile(card):
+    """One full-width Llama-3-8B decode step (batch 8) at length 1,024 (a
+    1,024-row cache, the serving phase's last step) and at the decode_32k
+    cut (a DECODE_32K.seq_len = 32,768-row cache, batch 128 cut to 8: 34.4
+    GB of bf16 cache filled with random values), at pos = S - 1, so every
+    row's length is S. Per cut: one warm-up step, 5 steps timed on the
+    host clock (each ending in a synchronize), one under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.configs import DECODE_32K
+    from repro_torch.models.transformer import build
+    dev = torch.device("cuda")
+    cfg = configs.get("llama3-8b")
+    model = build(cfg, dev)
+    B = SERVE["batch"]
+    with torch.inference_mode():
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        gen = torch.Generator(device=dev).manual_seed(1)
+        tok = {"tokens": torch.randint(0, cfg.vocab_size, (B, 1), device=dev,
+                                       generator=gen, dtype=torch.int32)}
+        for name, S in (("length 1024", 1024),
+                        ("decode_32k cut", DECODE_32K.seq_len)):
+            cache = model.init_cache(B, S)
+            for c in cache.values():
+                for t in c.values():
+                    t.normal_(generator=gen)
+            torch.cuda.synchronize()
+            model.decode_step(params, tok, cache, S - 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                logits, _ = model.decode_step(params, tok, cache, S - 1)
+                torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / 5
+            assert bool(torch.isfinite(logits.float()).all())
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                model.decode_step(params, tok, cache, S - 1)
+                torch.cuda.synchronize()
+            by_class = _device_ms_by_class(prof)
+            cache_gb = sum(t.numel() * t.element_size() for c in cache.values()
+                           for t in c.values()) / 1e9
+            print(f"decode step {name}: B={B} S={S} cache {cache_gb:.2f} GB, "
+                  f"step_ms {step_ms:.3f}, tokens_per_s "
+                  f"{B * 1e3 / step_ms:.1f} on {card}; "
+                  f"torch.cuda.max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated()}")
+            if not by_class:
+                print("  torch.profiler recorded no device time: not measured")
+            else:
+                busy = sum(by_class.values())
+                print(f"  device busy ms {busy:.3f}, idle share "
+                      f"{1 - busy / step_ms:.3f}")
+                for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+                    print(f"  {cls:>22}: {ms:9.3f} ms")
+            del cache, logits
+            torch.cuda.empty_cache()
+        del params
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_small_serve_reference():
+    """Serving on the card against the port's CPU path (itself held against
+    the JAX package by tests/test_torch_serve.py), on the reduced Llama-3-8B
+    in float32 with 2 kv heads (4 layers, d_model 64, 4 q / 2 kv heads,
+    batch 4, 8 prompt + 8 generated tokens). Both runs draw their params
+    from a CPU generator of the same seed, so they start equal. The
+    generated tokens must be equal; the logits of every step agree to rtol
+    1e-3, atol 1e-5 (f32 on both devices: the kernel's online softmax
+    against the CPU's masked einsum)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer
+    name = "llama3-8b-f32-kv2"
+    configs.register(dataclasses.replace(
+        configs.get("llama3-8b"), name=name, num_kv_heads=2,
+        param_dtype="float32", compute_dtype="float32"))
+    lm_init, step = transformer.LM.init, transformer.LM.decode_step
+    logits = []
+
+    def cpu_lm_init(self, generator):
+        return lm_init(self, torch.Generator().manual_seed(
+            generator.initial_seed()))
+
+    def recording_step(self, *args, **kwargs):
+        out, cache = step(self, *args, **kwargs)
+        logits.append(out.float().cpu().numpy())
+        return out, cache
+
+    transformer.LM.init = cpu_lm_init
+    transformer.LM.decode_step = recording_step
+    try:
+        results = {}
+        for device in ("cpu", "cuda"):
+            logits.clear()
+            before = dec.launches
+            out = serve(name, reduced=True, batch=4, prompt_len=8, gen_len=8,
+                        device=device)
+            expected = 4 * 16 if device == "cuda" else 0
+            assert dec.launches - before == expected, dec.launches - before
+            results[device] = (out["generated"], list(logits))
+    finally:
+        transformer.LM.init, transformer.LM.decode_step = lm_init, step
+    (gen_cpu, log_cpu), (gen_card, log_card) = results["cpu"], results["cuda"]
+    np.testing.assert_array_equal(gen_card, gen_cpu)
+    assert len(log_cpu) == len(log_card) == 16
+    for a, b in zip(log_cpu, log_card):
+        np.testing.assert_allclose(b, a, rtol=1e-3, atol=1e-5)
+    print("small serve: card == CPU path (tokens equal; logits rtol 1e-3, "
+          "atol 1e-5)")
+
+
 def main():
     import torch
     card = phase_versions()
@@ -746,7 +1105,12 @@ def main():
     phase_lm_profile(card, params, cfg)
     del params
     phase_small_lm_reference()
-    print(json.dumps({"kernels": [entry, flash]}))
+    torch.cuda.empty_cache()  # the training phases' trees are gone
+    decode = phase_decode_attention()
+    decode["launches"] = phase_serve(card)
+    phase_decode_profile(card)
+    phase_small_serve_reference()
+    print(json.dumps({"kernels": [entry, flash, decode]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,3 +1,6 @@
-from repro_torch.configs.base import ArchConfig, get, names, register
+from repro_torch.configs.base import (DECODE_32K, LONG_500K, PREFILL_32K,
+                                     SHAPES, TRAIN_4K, ArchConfig,
+                                     ShapeConfig, get, names, register)
 
-__all__ = ["ArchConfig", "get", "names", "register"]
+__all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "TRAIN_4K", "PREFILL_32K",
+           "DECODE_32K", "LONG_500K", "get", "names", "register"]

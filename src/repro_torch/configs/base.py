@@ -1,6 +1,7 @@
 """Architecture configuration (counterpart of ``repro/configs/base.py``).
 
-Every architecture is a frozen ``ArchConfig``. The fields are the
+Every architecture is a frozen ``ArchConfig`` and every input shape of the
+reference a ``ShapeConfig``. The fields are the
 reference's, name for name, so a config compares field by field with its
 JAX twin; the registry maps ``--arch <id>`` to its config and ``reduced()``
 derives the small CPU variant of the same family.
@@ -14,6 +15,28 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
+
+
+# ---------------------------------------------------------------------------
+# Shape configs (the reference's input-shape set; LM shapes are seq_len x
+# batch)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 
 @dataclass(frozen=True)

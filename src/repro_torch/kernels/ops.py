@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref, sparse_agg
 
@@ -55,3 +56,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Differentiable flash attention, q [B, S, Hq, d], k/v [B, S, Hkv, d]
     (``kernels/flash_attention.py``)."""
     return _FlashAttention.apply(q, k, v, causal, scale)
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 length: torch.Tensor) -> torch.Tensor:
+    """One-token GQA attention over a KV cache, q [B, Hq, d], k/v
+    [B, S, Hkv, d], length [B] int32 (``kernels/decode_attention.py``).
+    Forward only, as the reference's: it has no VJP."""
+    if q.device.type == "cpu":
+        return ref.decode_attention_ref(q, k, v, length)
+    return dec.decode_attention(q, k, v, length)

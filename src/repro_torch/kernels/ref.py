@@ -33,3 +33,25 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = s.masked_fill(~mask, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         length: torch.Tensor, *, scale=None) -> torch.Tensor:
+    """One-token attention over a cache, q [B, Hq, d], k/v [B, S, Hkv, d],
+    length [B]: kv heads repeated to Hq (q head h reads kv head
+    h // (Hq / Hkv)), f32 scores, columns >= length masked to -1e30, rows
+    with length == 0 exact zeros, output in q's dtype."""
+    B, Hq, d = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"q heads {Hq} are not a multiple of kv heads {Hkv}")
+    g = Hq // Hkv
+    k = k.repeat_interleave(g, dim=2)
+    v = v.repeat_interleave(g, dim=2)
+    scale = scale if scale is not None else d ** -0.5
+    s = torch.einsum("bhd,bkhd->bhk", q.float(), k.float()) * scale
+    valid = (torch.arange(S, device=q.device)[None, None, :]
+             < length[:, None, None])
+    s = s.masked_fill(~valid, -1e30)
+    p = torch.where(length[:, None, None] > 0, torch.softmax(s, dim=-1), 0.0)
+    return torch.einsum("bhk,bkhd->bhd", p, v.float()).to(q.dtype)

@@ -16,13 +16,19 @@ kv head h // (Hq / Hkv), as the Pallas index maps do. The reference repeats
 kv to Hq heads first and so runs its kernel with a group of 1; the values
 are the same and the card moves a quarter of the kv bytes.
 
+One-token decode (``gqa_decode``) writes the new k/v row into the
+preallocated cache in place (the reference's ``dynamic_update_slice``
+returns a new cache). On the card it attends through the flash-decode
+kernel (``kernels/ops.py:flash_decode``, kernel B6) over the whole cache
+with ``length = pos + 1``; on the CPU it runs the reference's einsum path.
+
 The reference's sharding constraints do nothing on one device and are
-left out. MLA and decode are not ported (ROADMAP A15).
+left out. MLA is not ported (ROADMAP A15).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.utils.checkpoint as ckpt
@@ -124,17 +130,87 @@ def gqa_forward(p: Params, x: torch.Tensor, cfg, *,
     return dense(p["wo"], out.reshape(B, S, nq * hd))
 
 
-def attn_init(fac: ParamFactory, cfg) -> Params:
+def gqa_init_cache(cfg, batch: int, max_seq: int, dtype, device) -> Params:
+    nkv, hd = cfg.num_kv_heads, cfg.head_dim
+    return {"k": torch.zeros((batch, max_seq, nkv, hd), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((batch, max_seq, nkv, hd), dtype=dtype,
+                             device=device)}
+
+
+def decode_positions(batch: int, pos: int, device
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(positions [B, 1], length [B]) int32 on ``device`` for a token at
+    ``pos``: built once a step and shared by every layer."""
+    return (torch.full((batch, 1), pos, dtype=torch.int32, device=device),
+            torch.full((batch,), pos + 1, dtype=torch.int32, device=device))
+
+
+def gqa_decode(p: Params, x: torch.Tensor, cache: Params, pos: int, cfg, *,
+               steps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               ) -> Tuple[torch.Tensor, Params]:
+    """One-token decode. x: [B, 1, D]; ``pos``, a host integer, is the new
+    token's index; ``steps`` is ``decode_positions(B, pos, x.device)``,
+    built here when the caller has not. Writes its k/v row into ``cache``
+    ([B, S, Hkv, d] each) in place and returns (out [B, 1, D], cache)."""
+    B = x.shape[0]
+    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = nq // nkv
+    S = cache["k"].shape[1]
+    pos = int(pos)
+    if steps is None:
+        steps = decode_positions(B, pos, x.device)
+    positions, length = steps
+    q = apply_rope(_split_heads(dense(p["wq"], x), nq), positions,
+                   cfg.rope_theta)
+    k_new = apply_rope(_split_heads(dense(p["wk"], x), nkv), positions,
+                       cfg.rope_theta)
+    v_new = _split_heads(dense(p["wv"], x), nkv)
+    k, v = cache["k"], cache["v"]
+    k[:, pos] = k_new[:, 0].to(k.dtype)
+    v[:, pos] = v_new[:, 0].to(v.dtype)
+    if x.device.type == "cuda":
+        # the whole cache (a contiguous [B, S, Hkv, d] view); the kernel
+        # reads only rows < length, built on the device: no host sync
+        out = ops.flash_decode(q[:, 0].contiguous(), k, v, length)
+    else:
+        # the reference's math: scores and probabilities rounded to the
+        # compute dtype where it rounds them
+        qg = q.reshape(B, 1, nkv, g, hd)
+        scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float()
+        scores = scores / math.sqrt(hd)
+        valid = torch.arange(S, device=x.device) <= pos
+        scores = scores.masked_fill(~valid, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+    return dense(p["wo"], out.reshape(B, 1, nq * hd)), cache
+
+
+def _check_gqa(cfg) -> None:
     if cfg.attention != "gqa":
         raise NotImplementedError(f"{cfg.attention!r} attention is not ported "
                                   "(ROADMAP A15)")
+
+
+def attn_init(fac: ParamFactory, cfg) -> Params:
+    _check_gqa(cfg)
     return gqa_init(fac, cfg)
 
 
 def attn_forward(p: Params, x: torch.Tensor, cfg, *,
                  positions: Optional[torch.Tensor] = None,
                  causal: bool = True) -> torch.Tensor:
-    if cfg.attention != "gqa":
-        raise NotImplementedError(f"{cfg.attention!r} attention is not ported "
-                                  "(ROADMAP A15)")
+    _check_gqa(cfg)
     return gqa_forward(p, x, cfg, positions=positions, causal=causal)
+
+
+def attn_init_cache(cfg, batch: int, max_seq: int, dtype, device) -> Params:
+    _check_gqa(cfg)
+    return gqa_init_cache(cfg, batch, max_seq, dtype, device)
+
+
+def attn_decode(p: Params, x: torch.Tensor, cache: Params, pos: int, cfg, *,
+                steps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, Params]:
+    _check_gqa(cfg)
+    return gqa_decode(p, x, cache, pos, cfg, steps=steps)

@@ -6,8 +6,13 @@ needs: ``embed`` / ``run_layers(lo, hi)`` / ``head``. Layers are stored
 stacked (every leaf has a leading [n_layers] dim, as the reference's scan
 wants), and ``run_layers`` walks a Python loop over slices of the stack.
 
-Only the ``attn_mlp`` layer kind is ported; MoE, SSM and hybrid kinds,
-modality frontends and decode wait for ROADMAP A15.
+``init_cache`` / ``decode_step`` are the one-token decode the serving
+driver (``launch/serve.py``) steps: the cache is preallocated per segment
+as [n_layers, B, max_seq, Hkv, d] and each step writes its k/v rows into
+it in place, returning the same dict.
+
+Only the ``attn_mlp`` layer kind is ported; MoE, SSM and hybrid kinds and
+modality frontends wait for ROADMAP A15.
 """
 from __future__ import annotations
 
@@ -66,6 +71,25 @@ def layer_apply(p: Params, x: torch.Tensor, cfg, kind: str, *,
     return h + y, torch.zeros((), device=x.device)
 
 
+def layer_init_cache(cfg, kind: str, batch: int, max_seq: int, dtype,
+                     device) -> Params:
+    _check_kind(kind)
+    return attn.attn_init_cache(cfg, batch, max_seq, dtype, device)
+
+
+def layer_decode(p: Params, x: torch.Tensor, cache: Params, pos: int, cfg,
+                 kind: str, *, steps=None) -> Tuple[torch.Tensor, Params]:
+    """One-token layer. x: [B, 1, D]; ``steps`` as ``attn.gqa_decode``'s.
+    Writes the layer's cache in place and returns (y, cache)."""
+    _check_kind(kind)
+    a, cache = attn.attn_decode(p["attn"], norm(p["ln1"], x, cfg.norm,
+                                                cfg.norm_eps), cache, pos, cfg,
+                                steps=steps)
+    h = x + a
+    y = mlp_apply(p["mlp"], norm(p["ln2"], h, cfg.norm, cfg.norm_eps), cfg)
+    return h + y, cache
+
+
 def layer_at(stacked: Params, i: int) -> Params:
     """Layer i of a stacked tree (views)."""
     if isinstance(stacked, dict):
@@ -75,8 +99,9 @@ def layer_at(stacked: Params, i: int) -> Params:
 
 @dataclass
 class LM:
-    """``device`` is where ``init`` places the params; it defaults to the
-    card and raises when CUDA is absent (tests pass ``device="cpu"``)."""
+    """``device`` is where ``init`` places the params and ``init_cache``
+    the KV caches; it defaults to the card and raises when CUDA is absent
+    (tests pass ``device="cpu"``)."""
     cfg: object
     device: torch.device = "cuda"
 
@@ -155,6 +180,39 @@ class LM:
         h = norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
         head_w = params["embed"].T if cfg.tie_embeddings else params["head"]["w"]
         return chunked_ce_loss(h, head_w, batch, cfg) + 0.01 * aux
+
+
+    # ----- decode -----
+
+    def init_cache(self, batch: int, max_seq: int) -> Dict:
+        """Zeroed KV caches in the compute dtype on the model's device, one
+        stack per segment: {"k", "v"} of [n_layers, batch, max_seq, Hkv, d]."""
+        cfg = self.cfg
+        dtype = _dt(cfg.compute_dtype)
+        caches = {}
+        for kind, si, s_lo, s_hi in self._seg_table():
+            # one layer's cache on the meta device gives the shapes, as the
+            # reference's eval_shape does
+            one = layer_init_cache(cfg, kind, batch, max_seq, dtype, "meta")
+            caches[str(si)] = {
+                k: torch.zeros((s_hi - s_lo,) + tuple(t.shape), dtype=t.dtype,
+                               device=self.device) for k, t in one.items()}
+        return caches
+
+    def decode_step(self, params: Params, batch: Dict, cache: Dict, pos: int
+                    ) -> Tuple[torch.Tensor, Dict]:
+        """One-token decode. batch['tokens']: [B, 1]; ``pos`` (a host
+        integer) is its position. Writes every layer's k/v row at ``pos``
+        into ``cache`` in place and returns (logits [B, 1, V], cache)."""
+        h = self.embed(params, batch)
+        steps = attn.decode_positions(h.shape[0], int(pos), h.device)
+        for kind, si, s_lo, s_hi in self._seg_table():
+            stacked, stack_cache = params["segments"][str(si)], cache[str(si)]
+            for i in range(s_hi - s_lo):
+                h, _ = layer_decode(layer_at(stacked, i), h,
+                                    layer_at(stack_cache, i), pos, self.cfg,
+                                    kind, steps=steps)
+        return self.head(params, h), cache
 
 
 def token_loss(logits: torch.Tensor, batch: Dict, cfg) -> torch.Tensor:

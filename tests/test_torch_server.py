@@ -155,8 +155,9 @@ def test_unported_policies_and_run_arguments_raise():
 
 def test_port_imports_without_jax_or_reference():
     """Every module of the port imports with JAX and the JAX package
-    blocked, the LM slice's modules among them, and registering the dense
-    configs pulls in nothing of either; chip_smoke.py imports neither."""
+    blocked, the LM and serving slices' modules among them, and registering
+    the dense configs pulls in nothing of either; chip_smoke.py imports
+    neither."""
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -168,7 +169,8 @@ def test_port_imports_without_jax_or_reference():
             "for n in ('repro_torch.configs.llama3_8b', "
             "'repro_torch.models.attention', 'repro_torch.models.transformer', "
             "'repro_torch.core.freezing', 'repro_torch.kernels.flash_attention', "
-            "'repro_torch.launch.train'):\n"
+            "'repro_torch.launch.train', 'repro_torch.kernels.decode_attention', "
+            "'repro_torch.launch.serve'):\n"
             "    assert n in names, n\n"
             "from repro_torch import configs\n"
             "assert configs.names() == ['deepseek-coder-33b', 'llama3-8b', "
