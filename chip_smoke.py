@@ -18,7 +18,8 @@ Phases, each of which exits non-zero on failure:
      kernel class and the device's idle share;
   6. check the card's result against the port's CPU path on a small model;
   7. hold the flash attention kernel (B4) against its plain version at the
-     Llama-3-8B training shape and its variants, with its times;
+     Llama-3-8B training shape and its variants (Zamba2-7B's head dim 112
+     among them), with its times;
   8. drive the LM main path: ``launch/train.py:train`` on full-width
      Llama-3-8B (32 layers, 4 stages x 2 rounds, batch 4 x 1024 tokens),
      with every kernel's launch count set to 0 just before and read just
@@ -29,7 +30,8 @@ Phases, each of which exits non-zero on failure:
      model;
  11. free the training phases' memory, then hold the flash-decode kernel
      (B6) against its plain version at the Llama-3-8B serving shape, the
-     decode_32k cut and its variants, with its times;
+     decode_32k cut and its variants (Zamba2-7B's head dim 112 among
+     them), with its times;
  12. drive the serving path: ``launch/serve.py:serve`` on full-width
      Llama-3-8B (batch 8, 960 prompt + 64 generated tokens: 1,024 decode
      steps), with every kernel's launch count set to 0 just before and read
@@ -38,6 +40,24 @@ Phases, each of which exits non-zero on failure:
      at the decode_32k cut (batch 8 x 32,768 cached tokens): device time
      by kernel class and the device's idle share;
  14. check the card's serving result against the port's CPU path on a
+     small model;
+ 15. hold the SSD scan kernel (B5) against its plain version (the
+     sequential recurrence) at Zamba2-7B's training shape, at 4,096 tokens,
+     at a ragged length and at the reference sweep's f32 widths, with the
+     model's dt and decay distributions; time kernel, plain version and the
+     chunked plain form;
+ 16. drive the hybrid main path: ``launch/train.py:train`` on full-width
+     Zamba2-7B (81 layers: 68 Mamba2, 13 shared attention over 2 tied
+     sets; 6 stages x 1 round, batch 4 x 1024 tokens), with every kernel's
+     launch count set to 0 just before and read just after;
+ 17. profile one stage-0 and one stage-5 hybrid round;
+ 18. check the card's hybrid training against the port's CPU path on a
+     small model;
+ 19. drive hybrid serving: ``launch/serve.py:serve`` on full-width
+     Zamba2-7B (batch 8, 192 prompt + 64 generated tokens: 256 decode
+     steps), counts set to 0 before and read after; then time and profile
+     one decode step;
+ 20. check the card's hybrid serving against the port's CPU path on a
      small model.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -301,6 +321,8 @@ def _kernel_class(name):
         return "flash_attention (B4)"
     if "decode_split" in low or "decode_merge" in low:
         return "decode_attention (B6)"
+    if "ssd_scan" in low:
+        return "ssd_scan (B5)"
     if "softmax" in low:
         return "softmax"
     if "nvjet" in low or "cublas" in low or "cutlass" in low:
@@ -420,7 +442,9 @@ FLASH_CASES = [("main", 4, 1024, 32, 8, 128, "bfloat16", True),
                ("S=4096 B=1", 1, 4096, 32, 8, 128, "bfloat16", True),
                ("non-causal", 4, 1024, 32, 8, 128, "bfloat16", False),
                ("g=1", 4, 1024, 32, 32, 128, "bfloat16", True),
-               ("d=16 f32", 4, 1024, 4, 2, 16, "float32", True)]
+               ("d=16 f32", 4, 1024, 4, 2, 16, "float32", True),
+               # Zamba2-7B's shared attention and proxy layers
+               ("d=112 g=1", 4, 1024, 32, 32, 112, "bfloat16", True)]
 # bf16: two bf16 ulps at magnitude 1 (the kernel rounds p to bf16 before
 # p v; both sides round the output to bf16). f32: summation order only.
 FLASH_TOL = {"bfloat16": (1.6e-2, 1.6e-2), "float32": (1e-5, 1e-5)}
@@ -499,22 +523,40 @@ def phase_flash_attention():
             "launches": None, "max_abs_err": worst, "ms": top["ms"],
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
-            "call_ms": top["call_ms"], "shape": top["shape"]}
+            "call_ms": top["call_ms"], "shape": top["shape"],
+            "d112": rows[-1]}  # Zamba2-7B's shape
 
 
 LM_PACE = dict(min_rounds=3, mu=2, slope_lambda=5e-3, low_memory=True)
 
 
-def _expected_flash_launches(cfg, history):
-    """One launch per attention a round runs: stage t runs layers
-    [0, b_{t+1}) (frozen prefix and active block) and T - t - 1 proxy
-    layers of its output module."""
+def _expected_lm_launches(cfg, history):
+    """(flash attention, SSD scan) launches of the rounds in ``history``:
+    one per attention layer and one per Mamba2 layer that a round's forward
+    runs. Stage t runs layers [0, b_{t+1}) (frozen prefix and active block)
+    and T - t - 1 proxy attention layers of its output module; neither
+    backward launches a kernel (both are autograd through plain forms)."""
     from repro_torch.core import freezing
-    total = 0
+    kinds = cfg.layer_kinds()
+    flash = ssd = 0
     for h in history:
-        plan = freezing.make_stage_plan(cfg, h["stage"])
-        total += plan.hi + (cfg.num_freeze_blocks - h["stage"] - 1)
-    return total
+        hi = freezing.make_stage_plan(cfg, h["stage"]).hi
+        mamba = sum(k == "mamba2" for k in kinds[:hi])
+        ssd += mamba
+        flash += hi - mamba + (cfg.num_freeze_blocks - h["stage"] - 1)
+    return flash, ssd
+
+
+F32_PARAMS = ("A_log", "D", "dt_bias")
+
+
+def _named_leaves(tree, key=None):
+    """(last key, leaf) for every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, k)
+    else:
+        yield key, tree
 
 
 def _peak_rss_bytes():
@@ -522,17 +564,21 @@ def _peak_rss_bytes():
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
-def phase_lm_main_path(card):
-    """Full-width Llama-3-8B through launch/train.py:train on the card: 32
-    layers, d_model 4096, 32 q / 8 kv heads, vocab 128256, bf16, random
-    params from a seed; 4 stages x 2 rounds of batch 4 x 1024 tokens, one
-    pod. The pace controller's anchored window (low_memory) keeps two host
-    copies of the 1.7 B-parameter active block instead of six. Returns the
-    flash kernel's launches and the trained params."""
+def phase_lm_main_path(card, arch="llama3-8b", steps=8, expect=(172, 0)):
+    """Full width ``arch`` through launch/train.py:train on the card, bf16,
+    random params from a seed, ``steps`` rounds of batch 4 x 1024 tokens
+    spread evenly over the stages, one pod. Llama-3-8B: 32 layers, d_model
+    4096, 32 q / 8 kv heads, vocab 128256, 4 stages x 2 rounds. Zamba2-7B:
+    81 layers (68 Mamba2, 13 shared attention over 2 tied sets), d_model
+    3584, 6 stages x 1 round. The pace controller's anchored
+    window (low_memory) keeps two host copies of the active block instead
+    of six. ``expect`` is (flash attention, SSD scan) launches, as
+    ``_expected_lm_launches`` counts them. Returns the launches, the
+    trained params and the config."""
     import torch
     from repro_torch.core import pace
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import sparse_agg
+    from repro_torch.kernels import sparse_agg, ssm_scan
     from repro_torch.launch.train import train
     from repro_torch.models.module import tree_leaves
     observe_ms = []
@@ -547,36 +593,44 @@ def phase_lm_main_path(card):
     pace.PaceController.observe = timed_observe
     try:
         torch.cuda.reset_peak_memory_stats()
-        fa.launches = sparse_agg.launches = 0
+        fa.launches = sparse_agg.launches = ssm_scan.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = train("llama3-8b", reduced=False, steps=8, batch=4, seq=1024,
+        out = train(arch, reduced=False, steps=steps, batch=4, seq=1024,
                     num_pods=1, use_pallas=True, pace_kwargs=dict(LM_PACE),
                     log_every=1, device="cuda")
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
-        launches = fa.launches
+        launches = (fa.launches, ssm_scan.launches)
     finally:
         pace.PaceController.observe = observe
-    hist = out["history"]
+    hist, cfg = out["history"], out["config"]
     for h, o_ms in zip(hist, observe_ms):
-        print(f"lm stage {h['stage']} round {h['round']} loss {h['loss']:.4f} "
-              f"round_wall_ms {h['seconds'] * 1e3:.1f} pace_observe_host_ms "
-              f"{o_ms:.1f}")
-    print(f"lm main path seconds {total_s:.2f} (model init included) on {card}")
-    print(f"lm torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated()}")
-    print(f"lm host peak rss bytes {_peak_rss_bytes()}")
-    assert [h["stage"] for h in hist] == [0, 0, 1, 1, 2, 2, 3, 3], hist
+        print(f"{arch} stage {h['stage']} round {h['round']} loss "
+              f"{h['loss']:.4f} round_wall_ms {h['seconds'] * 1e3:.1f} "
+              f"pace_observe_host_ms {o_ms:.1f}")
+    print(f"{arch} main path seconds {total_s:.2f} (model init included) on "
+          f"{card}")
+    print(f"{arch} torch.cuda.max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()}")
+    print(f"{arch} host peak rss bytes {_peak_rss_bytes()}")
+    per_stage = steps // cfg.num_freeze_blocks
+    assert [h["stage"] for h in hist] == [
+        t for t in range(cfg.num_freeze_blocks) for _ in range(per_stage)], hist
     assert all(math.isfinite(h["loss"]) for h in hist), [h["loss"] for h in hist]
     leaves = tree_leaves(out["params"])
-    assert all(l.device.type == "cuda" and l.dtype == torch.bfloat16
-               for l in leaves)
+    assert all(l.device.type == "cuda" for l in leaves)
     assert all(bool(torch.isfinite(l).all()) for l in leaves)
-    expected = _expected_flash_launches(out["config"], hist)
-    print(f"flash_attention launches {launches} (expected {expected})")
-    assert launches == expected == 172, (launches, expected)
+    # bf16 params, but for Mamba2's A_log, D and dt_bias, kept in f32
+    for key, leaf in _named_leaves(out["params"]):
+        want = torch.float32 if key in F32_PARAMS else torch.bfloat16
+        assert leaf.dtype == want, (key, leaf.dtype)
+    expected = _expected_lm_launches(cfg, hist)
+    print(f"{arch} flash_attention, ssd_scan launches {launches} (expected "
+          f"{expected})")
+    assert launches == expected == expect, (launches, expected)
     assert sparse_agg.launches == 0
-    return launches, out["params"], out["config"]
+    return launches, out["params"], cfg
 
 
 def _device_ms_by_class(prof):
@@ -589,10 +643,12 @@ def _device_ms_by_class(prof):
     return {cls: us / 1e3 for cls, us in by_class.items()}
 
 
-def phase_lm_profile(card, params, cfg):
-    """Where an LM round's time goes, at stage 0 (8 trained layers, 3 proxy
-    layers, the largest active tree) and stage 3 (24 frozen layers, the
-    real head). A round is what train() runs per round: the federated round
+def phase_lm_profile(card, params, cfg, stages=(0, 3)):
+    """Where an LM round's time goes, at the first of ``stages`` (the
+    embedding stage, with the most proxy layers; Llama-3-8B: 8 trained
+    layers and 3 proxies) and the last (the deepest frozen prefix and the
+    real head; Llama-3-8B: 24 frozen layers; Zamba2-7B: 68). A round is
+    what train() runs per round: the federated round
     step, then the pace controller's observe of the active block. The step:
     one warm-up, one timed on the host clock, one under torch.profiler. The
     observe: the warm-up's (a first snapshot) is not counted; the next one,
@@ -608,7 +664,7 @@ def phase_lm_profile(card, params, cfg):
     dev = torch.device("cuda")
     model = build(cfg, dev)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    for stage in (0, 3):
+    for stage in stages:
         plan = freezing.make_stage_plan(cfg, stage)
         frozen, active = freezing.init_stage_active(
             model, params, plan, torch.Generator(device=dev).manual_seed(stage))
@@ -641,7 +697,7 @@ def phase_lm_profile(card, params, cfg):
             torch.cuda.synchronize()
         obs_ms = (time.perf_counter() - t0) * 1e3
         obs_dev = _device_ms_by_class(prof)
-        print(f"lm profile stage {stage} on {card}: round step wall_ms "
+        print(f"{cfg.name} profile stage {stage} on {card}: round step wall_ms "
               f"{step_ms:.1f}, pace observe host_ms {obs_ms:.1f}")
         if not step_dev:
             print("  torch.profiler recorded no device time: not measured")
@@ -691,28 +747,34 @@ def _ce_ms(active, plan, cfg):
     return start.elapsed_time(end) / 3
 
 
-def phase_small_lm_reference():
+def phase_small_lm_reference(arch="llama3-8b"):
     """The LM path on the card against the port's CPU path (itself held
-    against the JAX package by tests/test_torch_lm.py), on the reduced
-    Llama-3-8B in float32 (4 layers, d_model 64, 4 q / 4 kv heads, 2
-    stages x 1 round, batch 2 x 64 tokens). Both runs draw their params
-    and output modules from CPU generators of the same seeds, so they start
+    against the JAX package by tests/test_torch_lm.py and, for the hybrid,
+    tests/test_torch_hybrid.py), on the reduced ``arch`` in float32
+    (Llama-3-8B: 4 layers, d_model 64, 4 q / 4 kv heads; Zamba2-7B: 4
+    layers alternating Mamba2 and shared attention, d_model 64; 2 stages
+    x 1 round, batch 2 x 64 tokens). Both runs draw their params and
+    output modules from CPU generators of the same seeds, so they start
     equal. Tolerance rtol 1e-3, atol 1e-5 on losses and final params (f32
     on both devices, summed in other orders; the bf16 output modules can
-    flip a rounding)."""
+    flip a rounding). Every kernel of the path launches on the card and
+    never on the CPU."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch import configs
     from repro_torch.core import freezing
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan
     from repro_torch.launch.train import train
     from repro_torch.models import transformer
     from repro_torch.models.module import tree_leaves
-    name = "llama3-8b-f32"
-    configs.register(dataclasses.replace(configs.get("llama3-8b"), name=name,
+    name = f"{arch}-f32"
+    configs.register(dataclasses.replace(configs.get(arch), name=name,
                                          param_dtype="float32",
                                          compute_dtype="float32"))
+    kernels = [fa] + ([ssm_scan] if configs.get(arch).family == "hybrid"
+                      else [])
     lm_init, stage_init = transformer.LM.init, freezing.init_stage_active
 
     def cpu_lm_init(self, generator):
@@ -728,11 +790,12 @@ def phase_small_lm_reference():
     try:
         results = {}
         for device in ("cpu", "cuda"):
-            before = fa.launches
+            before = [k.launches for k in kernels]
             results[device] = train(name, reduced=True, steps=2, batch=2,
                                     seq=64, use_pallas=True, log_every=100,
                                     device=device)
-            assert (fa.launches > before) == (device == "cuda")
+            for k, n in zip(kernels, before):
+                assert (k.launches > n) == (device == "cuda"), k.__name__
     finally:
         transformer.LM.init, freezing.init_stage_active = lm_init, stage_init
     a, b = results["cpu"], results["cuda"]
@@ -744,7 +807,7 @@ def phase_small_lm_reference():
         assert y.device.type == "cuda"
         np.testing.assert_allclose(y.float().cpu().numpy(), x.float().numpy(),
                                    rtol=1e-3, atol=1e-5)
-    print("small LM: card == CPU path (rtol 1e-3, atol 1e-5)")
+    print(f"small {arch}: card == CPU path (rtol 1e-3, atol 1e-5)")
 
 
 # (name, B, S, Hq, Hkv, d, dtype, lengths): the first three are the serving
@@ -763,7 +826,10 @@ def _decode_cases():
              [1000, 999, 1, 500, 0, 64, 65, 1000]),
             ("d=16 f32", 8, 1024, 32, 8, 16, "float32", [1024] * 8),
             ("d=64 f32", 8, 1024, 32, 8, 64, "float32",
-             [1024, 0, 7, 513, 1024, 100, 1023, 2])]
+             [1024, 0, 7, 513, 1024, 100, 1023, 2]),
+            # Zamba2-7B's serving shape: 192 + 64 tokens, head dim 112
+            ("d=112 g=1", 8, 256, 32, 32, 112, "bfloat16",
+             [256, 1, 255, 128, 0, 64, 200, 17])]
 
 
 # (rtol, atol) of |err| <= atol + rtol |plain|. bf16: rtol 2^-7 is one or
@@ -912,29 +978,37 @@ def phase_decode_attention():
             "launches": None, "max_abs_err": worst, "ms": top["ms"],
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
-            "call_ms": top["call_ms"], "shape": top["shape"]}
+            "call_ms": top["call_ms"], "shape": top["shape"],
+            "d112": rows[-1]}  # Zamba2-7B's serving shape
 
 
 SERVE = dict(batch=8, prompt_len=960, gen_len=64)
+HYBRID_SERVE = dict(batch=8, prompt_len=192, gen_len=64)
 
 
-def phase_serve(card):
-    """Full-width Llama-3-8B through launch/serve.py:serve on the card: 32
-    layers, d_model 4096, 32 q / 8 kv heads, vocab 128256, bf16, random
-    params from a seed; batch 8, a 960-token prompt stepped one token at a
-    time, then 64 greedy tokens: 1,024 decode steps over a 1,024-row cache.
-    The last step's logits are kept (by a wrapper that only records them)
-    to check that they are finite. Returns B6's launches."""
+def phase_serve(card, arch="llama3-8b", shape=None, expect=32_768):
+    """Full-width ``arch`` through launch/serve.py:serve on the card, bf16,
+    random params from a seed, a batch of prompts stepped one token at a
+    time, then greedy tokens. Llama-3-8B (32 layers, d_model 4096, 32 q /
+    8 kv heads, vocab 128256): batch 8, 960 prompt + 64 generated tokens,
+    1,024 decode steps over a 1,024-row cache. Zamba2-7B (13 shared attention
+    layers over 2 tied sets, 68 Mamba2 layers stepping their O(1)
+    recurrence): batch 8, 192 + 64 tokens, 256 steps. ``expect`` is B6's
+    launches, one per attention layer and step; the path launches no other
+    kernel. The last step's logits are kept (by a wrapper that only
+    records them) to check that they are finite. Returns B6's launches."""
     import numpy as np
     import torch
     from repro_torch import configs
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import sparse_agg
+    from repro_torch.kernels import sparse_agg, ssm_scan
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer
-    cfg = configs.get("llama3-8b")
-    steps = SERVE["prompt_len"] + SERVE["gen_len"]
+    shape = shape or SERVE
+    cfg = configs.get(arch)
+    steps = shape["prompt_len"] + shape["gen_len"]
+    n_attn = sum(k != "mamba2" for k in cfg.layer_kinds())
     step, last = transformer.LM.decode_step, {}
 
     def recording_step(self, *args, **kwargs):
@@ -945,58 +1019,62 @@ def phase_serve(card):
     try:
         torch.cuda.reset_peak_memory_stats()
         dec.launches = fa.launches = sparse_agg.launches = 0
+        ssm_scan.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = serve("llama3-8b", reduced=False, device="cuda", **SERVE)
+        out = serve(arch, reduced=False, device="cuda", **shape)
         total_s = time.perf_counter() - t0
         launches = dec.launches
     finally:
         transformer.LM.decode_step = step
     gen = out["generated"]
-    loop_s = SERVE["batch"] * SERVE["gen_len"] / out["tokens_per_s"]
-    print(f"serve tokens_per_s {out['tokens_per_s']:.2f} (generated tokens "
-          f"over the whole {steps}-step loop), ms_per_decode_step "
+    loop_s = shape["batch"] * shape["gen_len"] / out["tokens_per_s"]
+    print(f"{arch} serve tokens_per_s {out['tokens_per_s']:.2f} (generated "
+          f"tokens over the whole {steps}-step loop), ms_per_decode_step "
           f"{loop_s * 1e3 / steps:.3f}, loop seconds {loop_s:.3f}, with "
           f"model init {total_s:.2f} on {card}")
-    print(f"serve torch.cuda.max_memory_allocated "
+    print(f"{arch} serve torch.cuda.max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()}")
-    print(f"serve generated[0, :16] {gen[0, :16].tolist()}")
-    print(f"decode_attention launches {launches} (expected "
-          f"{cfg.num_layers * steps})")
-    assert launches == cfg.num_layers * steps == 32_768, launches
-    assert fa.launches == 0 and sparse_agg.launches == 0
-    assert gen.shape == (SERVE["batch"], SERVE["gen_len"])
+    print(f"{arch} serve generated[0, :16] {gen[0, :16].tolist()}")
+    print(f"{arch} decode_attention launches {launches} (expected "
+          f"{n_attn * steps}), ssd_scan launches {ssm_scan.launches}")
+    assert launches == n_attn * steps == expect, launches
+    assert fa.launches == sparse_agg.launches == ssm_scan.launches == 0
+    assert gen.shape == (shape["batch"], shape["gen_len"])
     assert gen.dtype == np.int32 and gen.min() >= 0
     assert gen.max() < cfg.vocab_size
     logits = last.pop("logits")
-    assert logits.shape == (SERVE["batch"], 1, cfg.vocab_size)
+    assert logits.shape == (shape["batch"], 1, cfg.vocab_size)
     assert bool(torch.isfinite(logits.float()).all())
     return launches
 
 
-def phase_decode_profile(card):
+def phase_decode_profile(card, arch="llama3-8b", cuts=None):
     """One full-width Llama-3-8B decode step (batch 8) at length 1,024 (a
-    1,024-row cache, the serving phase's last step) and at the decode_32k
+    1,024-row cache) and at the decode_32k
     cut (a DECODE_32K.seq_len = 32,768-row cache, batch 128 cut to 8: 34.4
     GB of bf16 cache filled with random values), at pos = S - 1, so every
     row's length is S. Per cut: one warm-up step, 5 steps timed on the
-    host clock (each ending in a synchronize), one under torch.profiler."""
+    host clock (each ending in a synchronize), one under torch.profiler.
+    ``arch`` and ``cuts`` ((name, S) pairs) pick another model and cache
+    lengths; a hybrid model's Mamba2 states are filled at random too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import configs
     from repro_torch.configs import DECODE_32K
     from repro_torch.models.transformer import build
     dev = torch.device("cuda")
-    cfg = configs.get("llama3-8b")
+    cfg = configs.get(arch)
     model = build(cfg, dev)
     B = SERVE["batch"]
+    cuts = cuts or (("length 1024", 1024),
+                    ("decode_32k cut", DECODE_32K.seq_len))
     with torch.inference_mode():
         params = model.init(torch.Generator(device=dev).manual_seed(0))
         gen = torch.Generator(device=dev).manual_seed(1)
         tok = {"tokens": torch.randint(0, cfg.vocab_size, (B, 1), device=dev,
                                        generator=gen, dtype=torch.int32)}
-        for name, S in (("length 1024", 1024),
-                        ("decode_32k cut", DECODE_32K.seq_len)):
+        for name, S in cuts:
             cache = model.init_cache(B, S)
             for c in cache.values():
                 for t in c.values():
@@ -1017,7 +1095,8 @@ def phase_decode_profile(card):
             by_class = _device_ms_by_class(prof)
             cache_gb = sum(t.numel() * t.element_size() for c in cache.values()
                            for t in c.values()) / 1e9
-            print(f"decode step {name}: B={B} S={S} cache {cache_gb:.2f} GB, "
+            print(f"{arch} decode step {name}: B={B} S={S} cache "
+                  f"{cache_gb:.2f} GB, "
                   f"step_ms {step_ms:.3f}, tokens_per_s "
                   f"{B * 1e3 / step_ms:.1f} on {card}; "
                   f"torch.cuda.max_memory_allocated "
@@ -1037,11 +1116,12 @@ def phase_decode_profile(card):
     torch.cuda.empty_cache()
 
 
-def phase_small_serve_reference():
+def phase_small_serve_reference(arch="llama3-8b"):
     """Serving on the card against the port's CPU path (itself held against
-    the JAX package by tests/test_torch_serve.py), on the reduced Llama-3-8B
-    in float32 with 2 kv heads (4 layers, d_model 64, 4 q / 2 kv heads,
-    batch 4, 8 prompt + 8 generated tokens). Both runs draw their params
+    the JAX package by tests/test_torch_serve.py and, for the hybrid,
+    tests/test_torch_hybrid.py), on the reduced ``arch`` in float32 with 2
+    kv heads (4 layers, d_model 64, 4 q / 2 kv heads; Zamba2-7B's half of
+    them Mamba2; batch 4, 8 prompt + 8 generated tokens). Both runs draw their params
     from a CPU generator of the same seed, so they start equal. The
     generated tokens must be equal; the logits of every step agree to rtol
     1e-3, atol 1e-5 (f32 on both devices: the kernel's online softmax
@@ -1053,10 +1133,12 @@ def phase_small_serve_reference():
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer
-    name = "llama3-8b-f32-kv2"
+    name = f"{arch}-f32-kv2"
     configs.register(dataclasses.replace(
-        configs.get("llama3-8b"), name=name, num_kv_heads=2,
+        configs.get(arch), name=name, num_kv_heads=2,
         param_dtype="float32", compute_dtype="float32"))
+    n_attn = sum(k != "mamba2" for k in configs.get(name).reduced()
+                 .layer_kinds())
     lm_init, step = transformer.LM.init, transformer.LM.decode_step
     logits = []
 
@@ -1078,7 +1160,7 @@ def phase_small_serve_reference():
             before = dec.launches
             out = serve(name, reduced=True, batch=4, prompt_len=8, gen_len=8,
                         device=device)
-            expected = 4 * 16 if device == "cuda" else 0
+            expected = n_attn * 16 if device == "cuda" else 0
             assert dec.launches - before == expected, dec.launches - before
             results[device] = (out["generated"], list(logits))
     finally:
@@ -1088,8 +1170,144 @@ def phase_small_serve_reference():
     assert len(log_cpu) == len(log_card) == 16
     for a, b in zip(log_cpu, log_card):
         np.testing.assert_allclose(b, a, rtol=1e-3, atol=1e-5)
-    print("small serve: card == CPU path (tokens equal; logits rtol 1e-3, "
-          "atol 1e-5)")
+    print(f"small {arch} serve: card == CPU path (tokens equal; logits "
+          "rtol 1e-3, atol 1e-5)")
+
+
+# (name, B, S, H, hd, N, dtype, dt and decay): the first is the hybrid
+# main path's shape (Zamba2-7B, batch 4 x 1024 tokens); "model" draws dt =
+# softplus(n) (dt_bias 0) and log_a = -dt (A_log 0), "sweep" the reference
+# kernel sweep's dt = 0.3 |n| and log_a = -0.2 |n|; x, B, C standard normal
+SSD_CASES = [("main", 4, 1024, 112, 64, 64, "bfloat16", "model"),
+             ("S=4096 B=1", 1, 4096, 112, 64, 64, "bfloat16", "model"),
+             ("ragged S=1000", 4, 1000, 112, 64, 64, "bfloat16", "model"),
+             ("main f32", 4, 1024, 112, 64, 64, "float32", "model"),
+             ("reduced f32", 2, 64, 8, 16, 16, "float32", "model"),
+             ("sweep 1", 1, 64, 1, 8, 4, "float32", "sweep"),
+             ("sweep 2", 2, 64, 3, 16, 16, "float32", "sweep"),
+             ("sweep 3", 1, 256, 3, 8, 16, "float32", "sweep"),
+             ("sweep 4", 2, 256, 1, 16, 4, "float32", "sweep")]
+# (rtol, atol) of |err| <= atol + rtol |plain|. f32: the reference's own
+# tolerance for its Pallas kernel. bf16: rtol 2^-7 is one or two ulps of
+# the output's own magnitude (both versions compute in f32 and round once);
+# atol 1e-4 covers outputs near zero, where terms of up to about 150 cancel
+# and f32 sums in two orders differ by about 1e-5. Every case also checks
+# that the plain version with its decay shifted by one position breaks the
+# bound, so that an off-by-one kernel could not pass it.
+SSD_TOL = {"bfloat16": (2 ** -7, 1e-4), "float32": (2e-4, 2e-4)}
+def _ssd_flops(S, H, hd, N, r):
+    """(C B^T flops, f32 flops) of one batch row of the chunked form at
+    chunk length r, two per multiply-add: C B^T below the diagonal once per
+    chunk (it is the same for every head), and per head and chunk the
+    decayed S x below the diagonal, C h^T, the state update's outer
+    products and its decay h * exp(total)."""
+    shared = f32 = 0
+    for n, rr in ((S // r, r), (1, S % r)):
+        shared += n * rr * (rr + 1) * N
+        f32 += n * H * (rr * (rr + 1) * hd + 4 * rr * N * hd + N * hd * (rr > 0))
+    return shared, f32
+
+
+def _ssd_bound(B, S, H, hd, N, elt):
+    """(bound ms, bound_by): the bytes the function moves (x and y once,
+    dt and log_a in f32, B and C once) over 3.35 TB/s against its
+    operations: the chunked form's at the chunk length that needs the
+    fewest (any chunk length gives the same y; the kernel's is 64), C B^T
+    at the tensor cores' peak of its operand type (989 TFLOP/s bf16, the
+    67 TFLOP/s f32 rate for f32), the decayed terms in f32 at 67 TFLOP/s."""
+    nbytes = 2 * B * S * H * hd * elt + 2 * B * S * H * 4 + 2 * B * S * N * elt
+    shared_rate = BF16_FLOPS if elt == 2 else F32_FLOPS
+    t_ops = B * min(shared / shared_rate + f32 / F32_FLOPS
+                    for shared, f32 in (_ssd_flops(S, H, hd, N, r)
+                                        for r in range(1, S + 1)))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_ssd_scan():
+    """Kernel B5 against its plain version (the sequential recurrence, f32
+    state) at the hybrid main path's shape and its variants: a 4,096-token
+    sequence, a ragged length, f32 at full width and at the reduced
+    widths, and the reference sweep's f32 widths. Times the kernel, the
+    plain version and the chunked plain form (the model's CPU path and the
+    kernel's backward, at the model's chunk). No single PyTorch call
+    computes this function: library_ms is None."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, ssm_scan
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows, worst = [], 0.0
+    for name, B, S, H, hd, N, dtype, dist in SSD_CASES:
+        dt_ = getattr(torch, dtype)
+        x = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt_)
+        n = torch.randn(B, S, H, generator=gen, device=dev)
+        if dist == "model":
+            dt, la = F.softplus(n), -F.softplus(n)
+        else:
+            dt = n.abs() * 0.3
+            la = -torch.randn(B, S, H, generator=gen, device=dev).abs() * 0.2
+        Bm = torch.randn(B, S, N, generator=gen, device=dev).to(dt_)
+        Cm = torch.randn(B, S, N, generator=gen, device=dev).to(dt_)
+        got = ssm_scan.ssd_scan(x, dt, la, Bm, Cm)
+        want = ref.ssd_scan_ref(x, dt, la, Bm, Cm)
+        torch.cuda.synchronize()
+        rtol, atol = SSD_TOL[dtype]
+        err = (got.float() - want.float()).abs()
+        bad = bool((err > atol + rtol * want.float().abs()).any())
+        finite = bool(torch.isfinite(got.float()).all())
+        max_err = float(err.max())
+        # ulps where the relative term of the bound dominates (|plain| >=
+        # atol / rtol); nearer zero a sign flip is many ulps and the floor
+        # holds it
+        big = want.float().abs() >= atol / rtol
+        ulps = (_bf16_ulps(got[big], want[big])
+                if dtype == "bfloat16" and bool(big.any()) else None)
+        la_shift = torch.cat([la[:, :1], la[:, :-1]], dim=1)
+        shifted = ref.ssd_scan_ref(x, dt, la_shift, Bm, Cm)
+        sees_shift = bool(((shifted.float() - want.float()).abs()
+                           > atol + rtol * want.float().abs()).any())
+        del shifted
+        worst = max(worst, max_err)
+        chunk = min(256, S)
+        while S % chunk:
+            chunk -= 1
+        ms = _time_ms(lambda: ssm_scan.ssd_scan(x, dt, la, Bm, Cm))
+        call_ms = _call_ms(lambda: ssm_scan.ssd_scan(x, dt, la, Bm, Cm))
+        plain_ms = _time_ms(lambda: ref.ssd_scan_ref(x, dt, la, Bm, Cm),
+                            reps=2)
+        chunked_ms = _time_ms(lambda: ref.ssd_chunked_ref(
+            x, dt, la, Bm, Cm, chunk=chunk), reps=3)
+        bound_ms, bound_by = _ssd_bound(B, S, H, hd, N, x.element_size())
+        print(f"ssd_scan {name:>13} B={B} S={S} H={H} hd={hd} N={N} {dtype} "
+              f"{dist} max_abs_err={max_err:.3e} max_ulps_off_floor={ulps} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} chunked_plain_ms="
+              f"{chunked_ms:.4f} (chunk {chunk}) library_ms=None "
+              f"bound_ms={bound_ms:.4f} ({bound_by}) bound_share="
+              f"{bound_ms / ms:.3f} call_ms={call_ms:.4f}")
+        if bad or not finite:
+            raise AssertionError(f"ssd_scan disagrees with its plain version "
+                                 f"at {name}: max_abs_err {max_err}, finite "
+                                 f"{finite}")
+        if not sees_shift:
+            raise AssertionError(f"the tolerance at {name} does not tell the "
+                                 "plain version from one with its decay "
+                                 "shifted by a position")
+        rows.append(dict(ms=ms, plain_ms=plain_ms, chunked_plain_ms=chunked_ms,
+                         library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                         call_ms=call_ms, shape=dict(B=B, S=S, H=H, hd=hd, N=N,
+                                                     dtype=dtype)))
+        del x, dt, la, la_shift, Bm, Cm, got, want, err
+        torch.cuda.empty_cache()
+    top = rows[0]  # the hybrid main path's shape
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+            "replaces": "src/repro/kernels/ssm_scan.py:68",
+            "launches": None, "max_abs_err": worst, "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None,
+            "chunked_plain_ms": top["chunked_plain_ms"],
+            "call_ms": top["call_ms"], "shape": top["shape"]}
 
 
 def main():
@@ -1101,16 +1319,34 @@ def main():
     phase_profile(card)
     phase_small_reference()
     flash = phase_flash_attention()
-    flash["launches"], params, cfg = phase_lm_main_path(card)
+    (llama_flash, _), params, cfg = phase_lm_main_path(card)
     phase_lm_profile(card, params, cfg)
     del params
     phase_small_lm_reference()
     torch.cuda.empty_cache()  # the training phases' trees are gone
     decode = phase_decode_attention()
-    decode["launches"] = phase_serve(card)
+    llama_decode = phase_serve(card)
     phase_decode_profile(card)
     phase_small_serve_reference()
-    print(json.dumps({"kernels": [entry, flash, decode]}))
+    torch.cuda.empty_cache()
+    scan = phase_ssd_scan()
+    (hybrid_flash, scan["launches"]), params, cfg = phase_lm_main_path(
+        card, "zamba2-7b", steps=6, expect=(61, 242))
+    phase_lm_profile(card, params, cfg, stages=(0, 5))
+    del params
+    phase_small_lm_reference("zamba2-7b")
+    torch.cuda.empty_cache()
+    hybrid_decode = phase_serve(card, "zamba2-7b", HYBRID_SERVE, expect=3_328)
+    phase_decode_profile(card, "zamba2-7b", (("length 256", 256),))
+    phase_small_serve_reference("zamba2-7b")
+    # launches: the sum over the main paths that run the kernel
+    flash["launches"] = llama_flash + hybrid_flash
+    flash["launches_by_path"] = {"llama3-8b train": llama_flash,
+                                 "zamba2-7b train": hybrid_flash}
+    decode["launches"] = llama_decode + hybrid_decode
+    decode["launches_by_path"] = {"llama3-8b serve": llama_decode,
+                                  "zamba2-7b serve": hybrid_decode}
+    print(json.dumps({"kernels": [entry, flash, decode, scan]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

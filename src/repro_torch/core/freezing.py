@@ -14,6 +14,11 @@ the embedding off from the loss, so at stage 0 the embedding, though in
 the active tree, gets no gradient; the reference's zero gradient leaves it
 unchanged bit for bit, and the port skips its update.
 
+Zamba2's weight-tied shared-attention sets are in the active tree at
+every stage (the tying spans blocks). A shared layer in the frozen prefix
+runs under ``no_grad`` with the active weights, so only the occurrences in
+the active block give them a gradient, as the reference's boundary does.
+
 ``make_fed_round_step`` is one federated round with pods as cross-silo
 clients: each pod trains its own clone of the active tree for K local SGD
 steps, and the Eq. 1 fold averages the pods leaf by leaf in f32 and casts
@@ -82,8 +87,12 @@ def split_stage_params(model: LM, params: Params, plan: StagePlan
     active: Params = {"runs": {}}
     (active if plan.train_embed else frozen)["embed"] = params["embed"]
     for ri, (region, kind, si, a, b) in enumerate(plan.runs):
+        if kind == "shared_attn":
+            continue  # the tied sets, below
         tgt = active if region == "active" else frozen
         tgt["runs"][str(ri)] = slice_stack(params["segments"][str(si)], a, b)
+    if "shared_attn" in params:
+        active["shared_attn"] = params["shared_attn"]
     if plan.final:
         active["final_norm"] = params["final_norm"]
         if "head" in params:
@@ -104,10 +113,12 @@ def merge_stage_params(model: LM, params: Params, plan: StagePlan,
         new["embed"] = active["embed"]
     with torch.no_grad():
         for ri, (region, kind, si, a, b) in enumerate(plan.runs):
-            if region != "active":
+            if region != "active" or kind == "shared_attn":
                 continue
             tree_map(lambda full, part: full[a:b].copy_(part),
                      new["segments"][str(si)], active["runs"][str(ri)])
+    if "shared_attn" in active:
+        new["shared_attn"] = active["shared_attn"]
     if plan.final:
         new["final_norm"] = active["final_norm"]
         if "head" in active:
@@ -134,9 +145,30 @@ def _run(model: LM, h, run_params, kind: str, cfg, *, remat: bool):
 def prefix_is_static(plan: StagePlan) -> bool:
     """True when the frozen prefix is a fixed feature extractor for the
     whole stage (its outputs could be cached): false at stage 0, where the
-    embedding is in the active tree. The port has no weight-tied shared
-    attention, the reference's other exception."""
-    return not plan.train_embed
+    embedding is in the active tree, and when the prefix holds a
+    weight-tied shared-attention layer, whose weights are active at every
+    stage and keep moving."""
+    if plan.train_embed:
+        return False
+    return not any(kind == "shared_attn"
+                   for region, kind, si, a, b in plan.runs
+                   if region == "frozen")
+
+
+def _shared_idx(model: LM, seg_idx: int) -> int:
+    """The tied set of the shared-attention segment ``seg_idx``."""
+    return model._shared_attn_index(model._seg_table()[seg_idx][2])
+
+
+def _run_region(model: LM, h, tree, active, ri, kind, si, *,
+                remat: bool):
+    """One run of the plan: the layers of ``tree["runs"][ri]``, or a shared
+    attention layer with the active tree's tied set."""
+    cfg = model.cfg
+    if kind == "shared_attn":
+        return layer_apply(active["shared_attn"][str(_shared_idx(model, si))],
+                           h, cfg, kind, causal=not cfg.is_encoder_only)
+    return _run(model, h, tree["runs"][str(ri)], kind, cfg, remat=remat)
 
 
 def stage_prefix_features(model: LM, frozen: Params, active: Params,
@@ -151,8 +183,8 @@ def stage_prefix_features(model: LM, frozen: Params, active: Params,
         for ri, (region, kind, si, a, b) in enumerate(plan.runs):
             if region == "active":
                 break
-            h, aux = _run(model, h, frozen["runs"][str(ri)], kind, cfg,
-                          remat=False)
+            h, aux = _run_region(model, h, frozen, active, ri, kind, si,
+                                 remat=False)
             aux_total = aux_total + aux
     return h, aux_total
 
@@ -167,8 +199,8 @@ def stage_forward_from_features(model: LM, active: Params, h, aux_total,
     for ri, (region, kind, si, a, b) in enumerate(plan.runs):
         if region != "active":
             continue
-        h, aux = _run(model, h, active["runs"][str(ri)], kind, cfg,
-                      remat=remat)
+        h, aux = _run_region(model, h, active, active, ri, kind, si,
+                             remat=remat)
         aux_total = aux_total + aux
     if plan.final:
         h = norm(active["final_norm"], h, cfg.norm, cfg.norm_eps)

@@ -21,9 +21,13 @@
 //    q heads (up to kMaxGroup of them, a "head chunk"), so each K and V
 //    row is read from device memory once per group, not once per q head.
 //    Each lane group of a warp (D / 8 lanes for bf16, D / 4 for f32, one
-//    16-byte vector per lane) takes one row at a time, kUnroll rows per
-//    step with every load issued before any is used, and keeps its own
-//    online softmax (m, l, acc) in registers. At the end the block merges
+//    16-byte vector per lane, rounded up to a power of two) takes one row
+//    at a time, kUnroll rows per step with every load issued before any is
+//    used, and keeps its own online softmax (m, l, acc) in registers. At
+//    D = 112 (Zamba2-7B) a row is 14 vectors in bf16 and 28 in f32, so a
+//    group is 16 or 32 lanes with 2 or 4 idle: they load nothing, add 0 to
+//    the group's butterfly sum and store nothing, so the xor shuffles stay
+//    inside an aligned power-of-two group. At the end the block merges
 //    its lane groups through shared memory and writes one partial (m, l,
 //    acc) per (q head, split) to an f32 workspace.
 //  * decode_merge: grid (Hq, B). Merges the splits with a log-sum-exp
@@ -97,9 +101,11 @@ __device__ __forceinline__ uint4 load16(const void* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-// Lane groups: kLanes = D / kN lanes share one cached row, kLanes sized so
-// that one 16-byte vector per lane covers the row; a warp holds 32 / kLanes
-// groups and a block kGroups of them.
+__host__ __device__ constexpr int pow2_ceil(int n) { return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2); }
+
+// Lane groups: kVecs = D / kN 16-byte vectors cover one cached row; a group
+// is kLanes = kVecs rounded up to a power of two lanes (lanes past kVecs
+// idle), a warp holds 32 / kLanes groups and a block kGroups of them.
 template <typename T, int D, int GC>
 __global__ void __launch_bounds__(kThreads) decode_split(
     const T* __restrict__ q, const T* __restrict__ k,
@@ -108,7 +114,9 @@ __global__ void __launch_bounds__(kThreads) decode_split(
     float* __restrict__ ws_acc, int S, int Hq, int Hkv, int n_chunks,
     int chunk_rows, int splits, float scale) {
   constexpr int kN = Vec<T>::kN;
-  constexpr int kLanes = D / kN;
+  constexpr int kVecs = D / kN;
+  constexpr int kLanes = pow2_ceil(kVecs);
+  static_assert(D % kN == 0 && kLanes <= 32, "unsupported head dim");
   constexpr int kRowsPerWarp = 32 / kLanes;
   constexpr int kGroups = kWarps * kRowsPerWarp;
   __shared__ float sm_m[kGroups][GC];
@@ -139,6 +147,7 @@ __global__ void __launch_bounds__(kThreads) decode_split(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int grp = warp * kRowsPerWarp + lane / kLanes;
   const int col = (lane % kLanes) * kN;
+  const bool live = col < D;  // false on a padded group's idle lanes
   const long long row_stride = static_cast<long long>(Hkv) * D;
   const T* kb = k + static_cast<long long>(b) * S * row_stride + hk * D + col;
   const T* vb = v + static_cast<long long>(b) * S * row_stride + hk * D + col;
@@ -146,7 +155,7 @@ __global__ void __launch_bounds__(kThreads) decode_split(
   float qr[GC][kN];
 #pragma unroll
   for (int j = 0; j < GC; ++j) {
-    if (j < gh) {
+    if (j < gh && live) {
       Vec<T>::widen(load16(q + (static_cast<long long>(b) * Hq + h0 + j) * D
                            + col), qr[j]);
     } else {
@@ -175,7 +184,7 @@ __global__ void __launch_bounds__(kThreads) decode_split(
       const int row = r0 + u * kGroups + lane / kLanes;
       valid[u] = row < s1;
       kraw[u] = vraw[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (valid[u]) {
+      if (valid[u] && live) {
         kraw[u] = load16(kb + row * row_stride);
         vraw[u] = load16(vb + row * row_stride);
       }
@@ -236,8 +245,10 @@ __global__ void __launch_bounds__(kThreads) decode_split(
       sm_m[grp][j] = m[j];
       sm_l[grp][j] = l[j];
     }
+    if (live) {
 #pragma unroll
-    for (int e = 0; e < kN; ++e) sm_acc[grp][j][col + e] = acc[j][e];
+      for (int e = 0; e < kN; ++e) sm_acc[grp][j][col + e] = acc[j][e];
+    }
   }
   __syncthreads();
   for (int t = threadIdx.x; t < gh * D; t += kThreads) {
@@ -327,6 +338,7 @@ int launch_dim(int D, int gc, const void* q, const void* k, const void* v,
     case 16: return launch_group<T, 16>(gc, q, k, v, length, o, ws_m, ws_l, ws_acc, B, S, Hq, Hkv, n_chunks, chunk_rows, splits, scale, stream);
     case 32: return launch_group<T, 32>(gc, q, k, v, length, o, ws_m, ws_l, ws_acc, B, S, Hq, Hkv, n_chunks, chunk_rows, splits, scale, stream);
     case 64: return launch_group<T, 64>(gc, q, k, v, length, o, ws_m, ws_l, ws_acc, B, S, Hq, Hkv, n_chunks, chunk_rows, splits, scale, stream);
+    case 112: return launch_group<T, 112>(gc, q, k, v, length, o, ws_m, ws_l, ws_acc, B, S, Hq, Hkv, n_chunks, chunk_rows, splits, scale, stream);
     case 128: return launch_group<T, 128>(gc, q, k, v, length, o, ws_m, ws_l, ws_acc, B, S, Hq, Hkv, n_chunks, chunk_rows, splits, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -27,6 +27,12 @@
 //    the port). Two threads per query row, each holding half the head dim
 //    of q and of the accumulator; 32-row kv tiles.
 //
+// Head dims 16, 32, 64, 112 (Zamba2-7B's shared attention) and 128. Each is
+// a multiple of 16, so the bf16 path's D / 16 k-steps and D / 8 accumulator
+// tiles are whole; nothing assumes a power of two (the tile loaders divide
+// by D / 8 or D / 4 16-byte vectors a row, and 112 bf16 or f32 values are
+// a whole number of 16-byte vectors, so every row stays 16-byte aligned).
+//
 // Bound. Causal attention needs 4 * B * Hq * D * S (S + 1) / 2 flops and
 // moves q, k, v and o once: at the Llama-3-8B training shape (B 4, S 1024,
 // Hq 32, Hkv 8, D 128, bf16) that is 34.4 GFLOP against 84 MB, so the
@@ -377,6 +383,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 16: launch<16>(q, k, v, o, B, S, Hq, Hkv, scale, causal, is_bf16, st); break;
     case 32: launch<32>(q, k, v, o, B, S, Hq, Hkv, scale, causal, is_bf16, st); break;
     case 64: launch<64>(q, k, v, o, B, S, Hq, Hkv, scale, causal, is_bf16, st); break;
+    case 112: launch<112>(q, k, v, o, B, S, Hq, Hkv, scale, causal, is_bf16, st); break;
     case 128: launch<128>(q, k, v, o, B, S, Hq, Hkv, scale, causal, is_bf16, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,8 +3,9 @@
 A CUDA tensor goes to the kernel, which launches or raises. A CPU tensor
 takes the kernel's plain version in ``kernels/ref.py``, and that is the
 only case in which a forward runs the plain version. Flash attention's
-backward is autograd through its plain version on either device: the
-reference has no backward kernel either.
+backward is autograd through its plain version on either device, and the
+SSD scan's autograd through its chunked plain form: the reference has no
+backward kernel either.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref, sparse_agg
+from repro_torch.kernels import ssm_scan
 
 
 def sparse_cohort_add(idx: torch.Tensor, vals: torch.Tensor,
@@ -66,3 +68,40 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, length)
     return dec.decode_attention(q, k, v, length)
+
+
+class _SSDScan(torch.autograd.Function):
+    """Forward: the kernel on CUDA tensors, the sequential ``ssd_scan_ref``
+    on CPU tensors. Backward: autograd through ``ssd_chunked_ref`` (the
+    reference model's ``_ssd_chunked``, the function the reference
+    differentiates) on the saved inputs, with ``chunk`` rows a chunk; there
+    is no backward kernel. The sequential form is never differentiated: at
+    the training shape its graph would hold an f32 [B, H, hd, N] state for
+    every token, about 7.5 GB a layer."""
+
+    @staticmethod
+    def forward(ctx, x, dt, log_a, Bm, Cm, chunk):
+        ctx.save_for_backward(x, dt, log_a, Bm, Cm)
+        ctx.chunk = chunk
+        if x.device.type == "cpu":
+            return ref.ssd_scan_ref(x, dt, log_a, Bm, Cm)
+        return ssm_scan.ssd_scan(x.contiguous(), dt.contiguous(),
+                                 log_a.contiguous(), Bm.contiguous(),
+                                 Cm.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ref.ssd_chunked_ref(*inputs, chunk=ctx.chunk)
+        grads = torch.autograd.grad(out, inputs, g)
+        return (*grads, None)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, log_a: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Differentiable SSD scan, x [B, S, H, hd], dt and log_a [B, S, H] f32,
+    Bm and Cm [B, S, N] -> y [B, S, H, hd] (``kernels/ssm_scan.py``).
+    ``chunk`` is the backward's chunk length (S % chunk == 0). The forward
+    is the same function for any chunk."""
+    return _SSDScan.apply(x, dt, log_a, Bm, Cm, chunk)

@@ -1,21 +1,25 @@
 """End-to-end progressive federated LM training (counterpart of
 ``repro/launch/train.py``).
 
-Runs SmartFreeze on a dense GQA ``--arch``: per stage, build the (frozen,
-active) split and output module, run federated rounds (pods are the
-cross-silo clients) through ``fl/sim.py``'s ``FederatedLoop``, feed the
-pace controller the aggregated active block each round, freeze on
-convergence, merge, grow, repeat.
+Runs SmartFreeze on a dense GQA or hybrid (Zamba2) ``--arch``: per stage,
+build the (frozen, active) split and output module, run federated rounds
+(pods are the cross-silo clients) through ``fl/sim.py``'s
+``FederatedLoop``, feed the pace controller the aggregated active block
+each round, freeze on convergence, merge, grow, repeat.
 
 On the card every full-sequence attention runs the flash kernel
-(``kernels/csrc/flash_attention.cu``); ``use_pallas`` picks the CPU path
-the reference's ``--use-pallas`` picks. Checkpoints (``ckpt_dir``,
+(``kernels/csrc/flash_attention.cu``) and every Mamba2 layer's SSD scan
+the scan kernel (``kernels/csrc/ssm_scan.cu``); ``use_pallas`` picks the
+CPU attention path the reference's ``--use-pallas`` picks (the hybrid
+family's shared attention is GQA too). Checkpoints (``ckpt_dir``,
 ``resume``; ROADMAP A11) and the client mesh (``mesh_clients > 1``;
 ROADMAP A14) are not ported and raise ``TypeError``.
 
-Example (one H100, full-width Llama-3-8B):
+Examples (one H100, full width):
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
       --full --steps 8 --batch 4 --seq 1024 --use-pallas
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
+      --full --steps 6 --batch 4 --seq 1024 --use-pallas
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """Layer primitives (counterpart of ``repro/models/layers.py``): dense,
-the LM's norms, activations and RoPE, and the CNN's conv and batchnorm.
+the LM's norms, activations and RoPE, Mamba2's causal conv1d, and the
+CNN's conv and batchnorm.
 
 Norms compute in float32 and cast back to the input dtype, and RoPE
 rotates in float32, as the reference does; a bfloat16 model rounds at the
@@ -74,6 +75,32 @@ def activation(name: str):
             "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
 
 
+class _Silu(torch.autograd.Function):
+    """Forward: x * 1 / (1 + exp(-x)), each op in x's dtype, as XLA rounds
+    ``jax.nn.silu``. Backward: g * s (1 + x (1 - s)) with s = sigmoid(x),
+    the exact derivative. Autograd through the forward's ops would give
+    0 * inf = NaN where exp(-x) overflows (x < -88)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x * (1 / (1 + torch.exp(-x)))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        s = torch.sigmoid(x)
+        return g * (s * (1 + x * (1 - s)))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` with the reference's roundings (``_Silu``).
+    ``F.silu`` rounds once and differs by one ulp in about a third of bf16
+    outputs; through Mamba2's gates that grows to 0.06 at a layer's output,
+    against 0.002 with these roundings."""
+    return _Silu.apply(x)
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     """Inverse frequencies, shape [head_dim // 2], float32."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
@@ -93,6 +120,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def causal_conv1d_init(fac: ParamFactory, channels: int, k: int) -> Params:
+    return {"w": fac.param((k, channels), init="normal", fan_in=k),
+            "b": fac.param((channels,), init="zeros")}
+
+
+def causal_conv1d(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over time, x [batch, seq, channels]: k shifted
+    adds in x's dtype over a left-padded input, as the reference writes
+    it."""
+    k = p["w"].shape[0]
+    w = p["w"].to(x.dtype)  # [k, C]
+    pad = F.pad(x, (0, 0, k - 1, 0))
+    y = torch.zeros_like(x)
+    for i in range(k):
+        y = y + pad[:, i:i + x.shape[1], :] * w[i]
+    return y + p["b"].to(x.dtype)
+
+
+def causal_conv1d_step(p: Params, x_t: torch.Tensor, conv_state: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step, x_t [batch, C], conv_state [batch, k - 1, C]:
+    (y [batch, C], the new state, the window's last k - 1 rows)."""
+    w = p["w"].to(x_t.dtype)
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)  # [b, k, C]
+    y = torch.einsum("bkc,kc->bc", window, w) + p["b"].to(x_t.dtype)
+    return y, window[:, 1:, :]
 
 
 def conv2d_init(fac: ParamFactory, c_in: int, c_out: int, k: int, *,

@@ -74,16 +74,18 @@ class ParamFactory:
         self.stack = stack
 
     def param(self, shape: Tuple[int, ...], *, init: str = "normal",
-              scale: float = 1.0, fan_in: Optional[int] = None
-              ) -> torch.Tensor:
+              scale: float = 1.0, fan_in: Optional[int] = None,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """``normal`` draws N(0, (scale / sqrt(fan_in))^2) with the
         reference's default fan-in (``shape[0]`` for matrices), ``embed``
-        N(0, scale^2), as ``PFac.param`` does."""
+        N(0, scale^2), as ``PFac.param`` does. ``dtype`` overrides the
+        factory's (Mamba2 keeps A_log, D and dt_bias in float32)."""
+        dtype = self.dtype if dtype is None else dtype
         full = ((self.stack,) if self.stack else ()) + tuple(shape)
         if init == "zeros":
-            return torch.zeros(full, dtype=self.dtype, device=self.device)
+            return torch.zeros(full, dtype=dtype, device=self.device)
         if init == "ones":
-            return torch.ones(full, dtype=self.dtype, device=self.device)
+            return torch.ones(full, dtype=dtype, device=self.device)
         if init == "normal":
             fi = fan_in if fan_in is not None else (
                 shape[0] if len(shape) > 1 else shape[-1])
@@ -94,7 +96,7 @@ class ParamFactory:
             raise ValueError(f"unknown init {init}")
         t = torch.randn(full, generator=self.generator,
                         device=self.generator.device, dtype=torch.float32)
-        return t.mul_(std).to(self.dtype).to(self.device)
+        return t.mul_(std).to(dtype).to(self.device)
 
 
 def init_stack(fac: ParamFactory, n: int,

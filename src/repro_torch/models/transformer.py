@@ -1,18 +1,21 @@
-"""The dense LM: embed -> stacked attn_mlp layers -> head (counterpart of
-the dense part of ``repro/models/transformer.py``).
+"""The LM: embed -> segments of stacked layers -> head (counterpart of
+``repro/models/transformer.py``), for the dense GQA family and the hybrid
+Zamba2 family (Mamba2 layers and weight-tied shared attention).
 
 ``LM`` exposes the decomposed interface SmartFreeze's progressive trainer
 needs: ``embed`` / ``run_layers(lo, hi)`` / ``head``. Layers are stored
 stacked (every leaf has a leading [n_layers] dim, as the reference's scan
 wants), and ``run_layers`` walks a Python loop over slices of the stack.
+A hybrid model's shared-attention segments own no params: their layers use
+``params["shared_attn"][set]``, the sets alternating by occurrence.
 
 ``init_cache`` / ``decode_step`` are the one-token decode the serving
-driver (``launch/serve.py``) steps: the cache is preallocated per segment
-as [n_layers, B, max_seq, Hkv, d] and each step writes its k/v rows into
-it in place, returning the same dict.
+loop (``launch/serve.py``) steps: the caches are preallocated per
+segment (stacked [n_layers, ...] for a segment of layers, one KV cache per
+shared-attention occurrence) and each step writes its k/v rows and Mamba2
+states into them in place, returning the same dict.
 
-Only the ``attn_mlp`` layer kind is ported; MoE, SSM and hybrid kinds and
-modality frontends wait for ROADMAP A15.
+The MoE and xLSTM layer kinds and modality frontends wait for ROADMAP A15.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch.utils.checkpoint as ckpt
 
 from repro_torch._device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (activation, dense, dense_init, norm,
                                        norm_init)
 from repro_torch.models.module import ParamFactory, Params, init_stack
@@ -36,7 +40,7 @@ def _dt(name: str) -> torch.dtype:
 
 
 def _check_kind(kind: str) -> None:
-    if kind != "attn_mlp":
+    if kind not in ("attn_mlp", "shared_attn", "mamba2"):
         raise NotImplementedError(f"layer kind {kind!r} is not ported "
                                   "(ROADMAP A15)")
 
@@ -54,6 +58,9 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
 
 def layer_init(fac: ParamFactory, cfg, kind: str) -> Params:
     _check_kind(kind)
+    if kind == "mamba2":
+        return {"ln": norm_init(fac, cfg.d_model, cfg.norm),
+                "mix": ssm_mod.mamba2_init(fac, cfg)}
     return {"ln1": norm_init(fac, cfg.d_model, cfg.norm),
             "attn": attn.attn_init(fac, cfg),
             "ln2": norm_init(fac, cfg.d_model, cfg.norm),
@@ -62,26 +69,36 @@ def layer_init(fac: ParamFactory, cfg, kind: str) -> Params:
 
 def layer_apply(p: Params, x: torch.Tensor, cfg, kind: str, *,
                 causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence layer. Returns (y, aux_loss); a dense layer's aux loss
-    is 0."""
+    """Full-sequence layer. Returns (y, aux_loss); the ported kinds' aux
+    loss is 0."""
     _check_kind(kind)
+    aux = torch.zeros((), device=x.device)
+    if kind == "mamba2":
+        return x + ssm_mod.mamba2_forward(
+            p["mix"], norm(p["ln"], x, cfg.norm, cfg.norm_eps), cfg), aux
     h = x + attn.attn_forward(p["attn"], norm(p["ln1"], x, cfg.norm,
                                               cfg.norm_eps), cfg, causal=causal)
     y = mlp_apply(p["mlp"], norm(p["ln2"], h, cfg.norm, cfg.norm_eps), cfg)
-    return h + y, torch.zeros((), device=x.device)
+    return h + y, aux
 
 
 def layer_init_cache(cfg, kind: str, batch: int, max_seq: int, dtype,
                      device) -> Params:
     _check_kind(kind)
+    if kind == "mamba2":
+        return ssm_mod.mamba2_init_state(cfg, batch, dtype, device)
     return attn.attn_init_cache(cfg, batch, max_seq, dtype, device)
 
 
 def layer_decode(p: Params, x: torch.Tensor, cache: Params, pos: int, cfg,
                  kind: str, *, steps=None) -> Tuple[torch.Tensor, Params]:
     """One-token layer. x: [B, 1, D]; ``steps`` as ``attn.gqa_decode``'s.
-    Writes the layer's cache in place and returns (y, cache)."""
+    Writes the layer's cache or state in place and returns (y, cache)."""
     _check_kind(kind)
+    if kind == "mamba2":
+        y, cache = ssm_mod.mamba2_step(
+            p["mix"], norm(p["ln"], x, cfg.norm, cfg.norm_eps), cache, cfg)
+        return x + y, cache
     a, cache = attn.attn_decode(p["attn"], norm(p["ln1"], x, cfg.norm,
                                                 cfg.norm_eps), cache, pos, cfg,
                                 steps=steps)
@@ -106,19 +123,26 @@ class LM:
     device: torch.device = "cuda"
 
     def __post_init__(self):
-        if self.cfg.family != "dense" or self.cfg.attention != "gqa":
+        if self.cfg.family not in ("dense", "hybrid") or \
+                self.cfg.attention != "gqa":
             raise NotImplementedError(
-                f"{self.cfg.name}: only the dense GQA family is ported "
-                "(ROADMAP A15)")
+                f"{self.cfg.name}: only the dense GQA and hybrid families "
+                "are ported (ROADMAP A15)")
         self.device = resolve_device(self.device)
 
     def _build(self, fac: ParamFactory) -> Params:
         cfg = self.cfg
         p: Params = {"embed": fac.param((cfg.vocab_size, cfg.d_model),
                                         init="embed", scale=0.02)}
-        p["segments"] = {str(i): init_stack(fac, n, lambda f, k=kind:
-                                            layer_init(f, cfg, k))
+        # shared-attention segments own no params (the reference's tree)
+        p["segments"] = {str(i): {} if kind == "shared_attn" else
+                         init_stack(fac, n, lambda f, k=kind:
+                                    layer_init(f, cfg, k))
                          for i, (kind, n) in enumerate(cfg.segments())}
+        if any(k == "shared_attn" for k, _ in cfg.segments()):
+            p["shared_attn"] = {
+                str(j): layer_init(fac, cfg, "shared_attn")
+                for j in range(max(cfg.num_shared_attn_sets, 1))}
         p["final_norm"] = norm_init(fac, cfg.d_model, cfg.norm)
         if not cfg.tie_embeddings:
             p["head"] = dense_init(fac, cfg.d_model, cfg.vocab_size)
@@ -138,6 +162,20 @@ class LM:
             lo += n
         return out
 
+    def _shared_attn_index(self, layer_idx: int) -> int:
+        """The tied weight set of the shared-attention layer at
+        ``layer_idx``: occurrences alternate over the sets."""
+        occ = sum(k == "shared_attn"
+                  for k in self.cfg.layer_kinds()[:layer_idx])
+        return occ % max(self.cfg.num_shared_attn_sets, 1)
+
+    def _layers(self, params: Params, kind: str, si: int, s_lo: int, i: int
+                ) -> Params:
+        """The params of layer ``s_lo + i`` of segment ``si``."""
+        if kind == "shared_attn":
+            return params["shared_attn"][str(self._shared_attn_index(s_lo))]
+        return layer_at(params["segments"][str(si)], i)
+
     def embed(self, params: Params, batch: Dict) -> torch.Tensor:
         cfg = self.cfg
         if cfg.modality != "text":
@@ -151,10 +189,10 @@ class LM:
         causal = not self.cfg.is_encoder_only
         aux = torch.zeros((), device=h.device)
         for kind, si, s_lo, s_hi in self._seg_table():
-            stacked = params["segments"][str(si)]
             for i in range(max(lo, s_lo), min(hi, s_hi)):
-                h, al = layer_apply(layer_at(stacked, i - s_lo), h, self.cfg,
-                                    kind, causal=causal)
+                h, al = layer_apply(self._layers(params, kind, si, s_lo,
+                                                 i - s_lo),
+                                    h, self.cfg, kind, causal=causal)
                 aux = aux + al
         return h, aux
 
@@ -185,12 +223,19 @@ class LM:
     # ----- decode -----
 
     def init_cache(self, batch: int, max_seq: int) -> Dict:
-        """Zeroed KV caches in the compute dtype on the model's device, one
-        stack per segment: {"k", "v"} of [n_layers, batch, max_seq, Hkv, d]."""
+        """Zeroed caches on the model's device, per segment: a stack for a
+        segment of layers ({"k", "v"} of [n_layers, batch, max_seq, Hkv, d]
+        in the compute dtype; Mamba2's {"h", "conv"} of [n_layers, batch,
+        H, hd, N] f32 and [n_layers, batch, k - 1, channels]), one unstacked
+        KV cache for a shared-attention occurrence."""
         cfg = self.cfg
         dtype = _dt(cfg.compute_dtype)
         caches = {}
         for kind, si, s_lo, s_hi in self._seg_table():
+            if kind == "shared_attn":
+                caches[str(si)] = layer_init_cache(cfg, kind, batch, max_seq,
+                                                   dtype, self.device)
+                continue
             # one layer's cache on the meta device gives the shapes, as the
             # reference's eval_shape does
             one = layer_init_cache(cfg, kind, batch, max_seq, dtype, "meta")
@@ -202,16 +247,18 @@ class LM:
     def decode_step(self, params: Params, batch: Dict, cache: Dict, pos: int
                     ) -> Tuple[torch.Tensor, Dict]:
         """One-token decode. batch['tokens']: [B, 1]; ``pos`` (a host
-        integer) is its position. Writes every layer's k/v row at ``pos``
-        into ``cache`` in place and returns (logits [B, 1, V], cache)."""
+        integer) is its position. Writes every attention layer's k/v row at
+        ``pos`` and every Mamba2 layer's state into ``cache`` in place and
+        returns (logits [B, 1, V], cache)."""
         h = self.embed(params, batch)
         steps = attn.decode_positions(h.shape[0], int(pos), h.device)
         for kind, si, s_lo, s_hi in self._seg_table():
-            stacked, stack_cache = params["segments"][str(si)], cache[str(si)]
+            seg_cache = cache[str(si)]
             for i in range(s_hi - s_lo):
-                h, _ = layer_decode(layer_at(stacked, i), h,
-                                    layer_at(stack_cache, i), pos, self.cfg,
-                                    kind, steps=steps)
+                lc = seg_cache if kind == "shared_attn" else layer_at(
+                    seg_cache, i)
+                h, _ = layer_decode(self._layers(params, kind, si, s_lo, i), h,
+                                    lc, pos, self.cfg, kind, steps=steps)
         return self.head(params, h), cache
 
 

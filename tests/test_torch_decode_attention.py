@@ -42,7 +42,8 @@ KERNEL_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 1e-6)}
 CASES = [(2, 64, 4, 4, 16, (64, 0)),
          (3, 100, 8, 2, 32, (1, 57, 100)),
          (2, 40, 4, 1, 16, (0, 0)),
-         (4, 130, 16, 4, 64, (130, 65, 0, 7))]
+         (4, 130, 16, 4, 64, (130, 65, 0, 7)),
+         (2, 50, 4, 4, 112, (50, 17))]  # Zamba2-7B's head dim
 
 
 def _inputs(B, S, Hq, Hkv, d, lengths, seed=0):
@@ -191,7 +192,9 @@ def _kernel_vs_plain(arrays, dtype, device):
     (2, 1000, 32, 8, 128, (999, 1000)),
     (2, 300, 56, 8, 64, (300, 129)),       # g = 7: one padded head chunk
     (2, 200, 32, 2, 32, (200, 1)),         # g = 16: two head chunks
-    (1, 4096, 32, 8, 128, (4096,))])
+    (1, 4096, 32, 8, 128, (4096,)),
+    (8, 256, 32, 32, 112, (256, 1, 255, 128, 0, 64, 200, 17)),  # Zamba2
+    (2, 300, 32, 8, 112, (300, 129))])
 def test_kernel_matches_plain_version(cuda_device, case, dtype):
     _kernel_vs_plain(_inputs(*case), dtype, cuda_device)
 

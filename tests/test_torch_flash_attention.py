@@ -32,9 +32,9 @@ F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=1.6e-2, atol=1.6e-2)
 
 # (B, S, Hq, Hkv, d): g in {1, 2, 4}, ragged S (not a multiple of the
-# reference's blocks), d = 16 (the reduced LM) and 32
+# reference's blocks), d = 16 (the reduced LM), 32 and 112 (Zamba2-7B)
 CASES = [(1, 64, 4, 4, 16), (2, 40, 4, 1, 16), (1, 100, 8, 2, 32),
-         (2, 128, 4, 2, 16)]
+         (2, 128, 4, 2, 16), (1, 72, 4, 2, 112)]
 
 
 def _inputs(B, S, Hq, Hkv, d, seed=0):
@@ -137,7 +137,9 @@ def cuda_device():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("case", CASES + [(2, 1000, 32, 8, 128),
-                                          (1, 257, 8, 8, 64)])
+                                          (1, 257, 8, 8, 64),
+                                          (2, 1024, 32, 32, 112),
+                                          (1, 1000, 32, 8, 112)])
 def test_kernel_matches_plain_version(cuda_device, case, causal, dtype):
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
     q, k, v = _torch(_inputs(*case), tdt, cuda_device)

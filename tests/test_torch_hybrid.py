@@ -1,0 +1,534 @@
+"""The port's hybrid Zamba2 family (Mamba2 layers and weight-tied shared
+attention) against the JAX package, on the CPU at a small size:
+``zamba2-7b.reduced()`` (4 layers alternating Mamba2 and shared attention
+over 2 tied sets, d_model 64, 4 heads of 16 for attention, 8 SSM heads of
+16 with state 16, conv kernel 4, 2 freeze blocks, vocab 256).
+
+Model params come from ``jax.random`` in the reference and are carried
+across with ``repro_torch.convert`` (Mamba2's A_log, D and dt_bias stay
+float32 under bfloat16 params, in both packages); in ``train()`` and
+``serve()`` the port's ``LM.init`` and ``init_stage_active`` are patched to
+return the reference's params and output modules.
+
+Tolerances, as ``tests/test_torch_lm.py`` and ``tests/test_torch_serve.py``
+state them:
+  * float32 layers, forward, loss, stage losses, decode: rtol 1e-5, atol
+    1e-5 (the same f32 arithmetic summed in another order);
+  * float32 round steps and whole trajectories: rtol 1e-3, atol 1e-5 on
+    losses, perturbations and params (the bf16 output modules' leaves
+    rtol 8e-3, two bf16 ulps);
+  * bfloat16: rtol 2e-2, atol 2e-2 on one layer and rtol 2e-2, atol 6e-2
+    on decode logits, as the dense tests; both sides round at the same
+    places (the Mamba2 gates' silu included, ``layers.silu``), after sums
+    taken in another order. The whole model's bf16 logits and loss are held
+    to the reference's no farther than the reference's own bf16 result lies
+    from its f32 result (0.145 on the logits at this size);
+  * decode against the port's own forward: rtol 2e-3, atol 2e-3;
+  * a whole f32 ``serve()`` trajectory: the generated tokens bit for bit."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.core import freezing as jfz
+from repro.data.synthetic import make_lm_batch as j_batch
+from repro.launch import serve as jserve_mod
+from repro.launch import train as jtrain_mod
+from repro.models import layers as jl
+from repro.models import ssm as jssm
+from repro.models import transformer as jtr
+from repro.optim import sgd as jsgd
+
+from repro_torch import configs as tconfigs
+from repro_torch.convert import to_numpy, to_torch
+from repro_torch.core import freezing as tfz
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ssm_scan as tscan
+from repro_torch.launch import serve as tserve_mod
+from repro_torch.launch import train as ttrain_mod
+from repro_torch.models import layers as tl
+from repro_torch.models import ssm as tssm
+from repro_torch.models import transformer as ttr
+from repro_torch.models.module import tree_leaves
+from repro_torch.optim import sgd as tsgd
+
+ARCH = "zamba2-7b"
+F32 = dict(param_dtype="float32", compute_dtype="float32")
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+TRAJ_TOL = dict(rtol=1e-3, atol=1e-5)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+LM_BF16_TOL = dict(rtol=2e-2, atol=6e-2)
+BF16_LEAF_TOL = dict(rtol=8e-3, atol=1e-5)
+DECODE_TOL = dict(rtol=2e-3, atol=2e-3)
+
+
+def _cfgs(**over):
+    return jconfigs.get(ARCH).reduced(**over), tconfigs.get(ARCH).reduced(**over)
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _tnp(t):
+    return t.detach().float().numpy()
+
+
+def _close_trees(t_tree, j_tree, tol, bf16_tol=None):
+    """Leafwise allclose; bfloat16 leaves take ``bf16_tol`` when given."""
+    tl_, jl_ = tree_leaves(t_tree), jax.tree.leaves(j_tree)
+    assert len(tl_) == len(jl_)
+    for a, b in zip(tl_, jl_):
+        assert tuple(a.shape) == b.shape
+        assert a.dtype == getattr(torch, jnp.dtype(b.dtype).name)
+        leaf_tol = bf16_tol if bf16_tol and a.dtype == torch.bfloat16 else tol
+        np.testing.assert_allclose(_tnp(a), _np(b), **leaf_tol)
+
+
+def _model_and_params(jcfg, tcfg, seed=0):
+    jm = jtr.build(jcfg)
+    params = jm.init(jax.random.PRNGKey(seed))
+    return jm, params, ttr.build(tcfg, "cpu"), to_torch(params)
+
+
+def _batch(cfg, b=2, s=32, seed=0):
+    d = j_batch(cfg, b, s, seed=seed)
+    return ({k: jnp.asarray(v) for k, v in d.items()},
+            {k: torch.as_tensor(v) for k, v in d.items()})
+
+
+def _mamba_params(params):
+    """Layer 0 (a Mamba2 layer) of the reduced model."""
+    return jax.tree.map(lambda a: a[0], params["segments"]["0"])
+
+
+# --------------------------------------------------------------------------
+# config, params
+# --------------------------------------------------------------------------
+
+
+def test_layout_and_plans_match_reference():
+    j, t = jconfigs.get(ARCH), tconfigs.get(ARCH)
+    assert t.layer_kinds() == j.layer_kinds()
+    assert t.layer_kinds().count("shared_attn") == 13
+    assert t.layer_kinds().count("mamba2") == 68
+    assert t.block_boundaries() == j.block_boundaries() == \
+        (0, 14, 28, 42, 55, 68, 81)
+    for jc, tc in ((j, t), _cfgs()):
+        for stage in list(range(jc.num_freeze_blocks)) + [None]:
+            jp, tp = jfz.make_stage_plan(jc, stage), tfz.make_stage_plan(tc, stage)
+            assert tuple(tp) == tuple(jp)
+            assert tfz.prefix_is_static(tp) == jfz.prefix_is_static(jp)
+        jm, tm = jtr.build(jc), ttr.build(tc, "cpu")
+        for i, kind in enumerate(jc.layer_kinds()):
+            if kind == "shared_attn":
+                assert tm._shared_attn_index(i) == jm._shared_attn_index(i)
+        for si, (kind, _) in enumerate(jc.segments()):
+            if kind == "shared_attn":
+                assert tfz._shared_idx(tm, si) == jfz._shared_idx(jm, si)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_init_layout_matches_reference(dtype):
+    over = F32 if dtype == "float32" else {}
+    jcfg, tcfg = _cfgs(**over)
+    params = jtr.build(jcfg).init(jax.random.PRNGKey(0))
+    mine = ttr.build(tcfg, "cpu").init(torch.Generator().manual_seed(0))
+    assert jax.tree.structure(params) == jax.tree.structure(to_numpy(mine))
+    for (path, a), b in zip(jax.tree_util.tree_flatten_with_path(params)[0],
+                            tree_leaves(mine)):
+        assert tuple(b.shape) == a.shape, path
+        assert b.dtype == getattr(torch, jnp.dtype(a.dtype).name), path
+    mix = mine["segments"]["0"]["mix"]
+    assert all(mix[k].dtype == torch.float32 for k in ("A_log", "D", "dt_bias"))
+    assert not bool(mix["A_log"].any()) and bool((mix["D"] == 1).all())
+    assert mine["segments"]["1"] == {} and sorted(mine["shared_attn"]) == \
+        ["0", "1"]
+    # carried across and back bit for bit, f32 leaves included
+    for a, b in zip(jax.tree.leaves(params), tree_leaves(to_numpy(to_torch(
+            params)))):
+        assert b.dtype == a.dtype
+        np.testing.assert_array_equal(np.asarray(a).view(np.uint8),
+                                      b.view(np.uint8))
+
+
+# --------------------------------------------------------------------------
+# layers
+# --------------------------------------------------------------------------
+
+
+def test_silu_matches_reference():
+    """bf16 values bit for bit (the reference's roundings) on [-8, 8]; where
+    exp(-x) overflows or its reciprocal is subnormal (which XLA's CPU
+    flushes to zero and PyTorch keeps) within 1e-30; f32 gradients
+    allclose to jax.grad and finite everywhere."""
+    x = np.linspace(-8, 8, 1001).astype(np.float32)
+    want = jax.nn.silu(jnp.asarray(x, jnp.bfloat16))
+    got = tl.silu(torch.as_tensor(x).bfloat16())
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                  np.asarray(want).view(np.int16))
+    x = np.concatenate([x, [-200.0, -89.0, -88.0, 90.0]]).astype(np.float32)
+    np.testing.assert_allclose(_tnp(tl.silu(torch.as_tensor(x).bfloat16())),
+                               _np(jax.nn.silu(jnp.asarray(x, jnp.bfloat16))),
+                               rtol=0, atol=1e-30)
+    jg = jax.grad(lambda a: jnp.sum(jax.nn.silu(a)))(jnp.asarray(x))
+    tx = torch.as_tensor(x).requires_grad_()
+    (tg,) = torch.autograd.grad(tl.silu(tx).sum(), tx)
+    assert bool(torch.isfinite(tg).all())
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), **F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_conv1d_matches_reference(dtype):
+    rng = np.random.RandomState(1)
+    p = {"w": rng.randn(4, 12).astype(np.float32),
+         "b": rng.randn(12).astype(np.float32)}
+    x = rng.randn(2, 9, 12).astype(np.float32)
+    state = rng.randn(2, 3, 12).astype(np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    tp = {k: torch.as_tensor(v) for k, v in p.items()}
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    want = jl.causal_conv1d(jp, jnp.asarray(x, jdt))
+    got = tl.causal_conv1d(tp, torch.as_tensor(x).to(tdt))
+    assert got.dtype == tdt
+    np.testing.assert_allclose(_tnp(got), _np(want), **tol)
+    jy, jst = jl.causal_conv1d_step(jp, jnp.asarray(x[:, 0], jdt),
+                                    jnp.asarray(state, jdt))
+    ty, tst = tl.causal_conv1d_step(tp, torch.as_tensor(x[:, 0]).to(tdt),
+                                    torch.as_tensor(state).to(tdt))
+    np.testing.assert_allclose(_tnp(ty), _np(jy), **tol)
+    np.testing.assert_allclose(_tnp(tst), _np(jst), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba2_forward_and_step_match_reference(dtype):
+    over = F32 if dtype == "float32" else {}
+    jcfg, tcfg = _cfgs(**over)
+    _, params, _, _ = _model_and_params(jcfg, tcfg)
+    mp = _mamba_params(params)["mix"]
+    tp = to_torch(mp)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    u = np.random.RandomState(2).randn(2, 32, 64).astype(np.float32)
+    want = jssm.mamba2_forward(mp, jnp.asarray(u, jdt), jcfg)
+    got = tssm.mamba2_forward(tp, torch.as_tensor(u).to(tdt), tcfg)
+    assert got.dtype == tdt
+    np.testing.assert_allclose(_tnp(got), _np(want), **tol)
+    # three steps from a zero state; the port writes its state in place
+    jst = jssm.mamba2_init_state(jcfg, 2, jdt)
+    tst = tssm.mamba2_init_state(tcfg, 2, tdt, "cpu")
+    for t in range(3):
+        jy, jst = jssm.mamba2_step(mp, jnp.asarray(u[:, t:t + 1], jdt), jst,
+                                   jcfg)
+        ty, out = tssm.mamba2_step(tp, torch.as_tensor(u[:, t:t + 1]).to(tdt),
+                                   tst, tcfg)
+        assert out is tst and ty.dtype == tdt
+        np.testing.assert_allclose(_tnp(ty), _np(jy), **tol)
+    for k in ("h", "conv"):
+        assert tst[k].dtype == getattr(torch, jnp.dtype(jst[k].dtype).name)
+        np.testing.assert_allclose(_tnp(tst[k]), _np(jst[k]), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["mamba2", "shared_attn"])
+def test_layer_apply_matches_reference(kind, dtype):
+    over = F32 if dtype == "float32" else {}
+    jcfg, tcfg = _cfgs(**over)
+    _, params, _, _ = _model_and_params(jcfg, tcfg)
+    lp = (_mamba_params(params) if kind == "mamba2"
+          else params["shared_attn"]["1"])
+    x = np.random.RandomState(3).randn(2, 32, 64).astype(np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    want, _ = jtr.layer_apply(lp, jnp.asarray(x, jdt), jcfg, kind)
+    got, aux = ttr.layer_apply(to_torch(lp), torch.as_tensor(x).to(tdt), tcfg,
+                               kind)
+    assert got.dtype == tdt and float(aux) == 0.0
+    np.testing.assert_allclose(_tnp(got), _np(want),
+                               **(F32_TOL if dtype == "float32" else BF16_TOL))
+
+
+def test_lm_forward_and_loss_match_reference_f32():
+    jcfg, tcfg = _cfgs(**F32)
+    jm, params, tm, tparams = _model_and_params(jcfg, tcfg)
+    jb, tb = _batch(jcfg)
+    jlog, _ = jm.forward(params, jb)
+    tlog, aux = tm.forward(tparams, tb)
+    np.testing.assert_allclose(_tnp(tlog), _np(jlog), **F32_TOL)
+    np.testing.assert_allclose(float(tm.loss(tparams, tb)),
+                               float(jm.loss(params, jb)), **F32_TOL)
+    # layers [lo, hi) through run_layers, a shared layer first
+    h = np.random.RandomState(4).randn(2, 16, 64).astype(np.float32)
+    want, _ = jm.run_layers(params, jnp.asarray(h), 1, 4)
+    got, _ = tm.run_layers(tparams, torch.as_tensor(h), 1, 4)
+    np.testing.assert_allclose(_tnp(got), _np(want), **F32_TOL)
+
+
+def test_lm_forward_and_loss_match_reference_bf16():
+    """bf16 logits and loss through the whole model: the port is held to
+    the reference's bf16 result no farther than the reference's own bf16
+    result lies from its f32 result on the same params (0.145 on the
+    logits at this size), each side rounding at its own places after sums
+    taken in other orders; and to the f32 reference within twice that."""
+    jcfg, tcfg = _cfgs()
+    jm, params, tm, tparams = _model_and_params(jcfg, tcfg)
+    jm32 = jtr.build(dataclasses.replace(jcfg, **F32))
+    params32 = jax.tree.map(lambda a: a.astype(jnp.float32), params)
+    jb, tb = _batch(jcfg)
+    ref16, ref32 = _np(jm.forward(params, jb)[0]), _np(jm32.forward(params32,
+                                                                     jb)[0])
+    got = _tnp(tm.forward(tparams, tb)[0])
+    spread = np.abs(ref16 - ref32).max()
+    assert np.abs(got - ref16).max() <= spread
+    assert np.abs(got - ref32).max() <= 2 * spread
+    l16, l32 = float(jm.loss(params, jb)), float(jm32.loss(params32, jb))
+    assert abs(float(tm.loss(tparams, tb)) - l16) <= max(abs(l16 - l32), 1e-2)
+
+
+# --------------------------------------------------------------------------
+# freezing
+# --------------------------------------------------------------------------
+
+
+def _stage_trees(jm, params, tm, tparams, stage, seed=11):
+    jplan = jfz.make_stage_plan(jm.cfg, stage)
+    tplan = tfz.make_stage_plan(tm.cfg, stage)
+    jfr, jac = jfz.init_stage_active(jm, params, jplan,
+                                     jax.random.PRNGKey(seed))
+    tfr, tac = tfz.split_stage_params(tm, tparams, tplan)
+    if "op" in jac:
+        tac["op"] = to_torch(jac["op"])
+    return jplan, tplan, jfr, jac, tfr, tac
+
+
+@pytest.mark.parametrize("stage", [0, 1])
+def test_split_and_merge_round_trip_matches_reference(stage):
+    jcfg, tcfg = _cfgs(**F32)
+    jm, params, tm, tparams = _model_and_params(jcfg, tcfg)
+    jplan, tplan = jfz.make_stage_plan(jcfg, stage), tfz.make_stage_plan(tcfg, stage)
+    jfr, jac = jfz.split_stage_params(jm, params, jplan)
+    tfr, tac = tfz.split_stage_params(tm, tparams, tplan)
+    assert "shared_attn" in tac and "shared_attn" not in tfr
+    _close_trees(tfr, jfr, dict(rtol=0, atol=0))
+    _close_trees(tac, jac, dict(rtol=0, atol=0))
+    jac2 = jax.tree.map(lambda a: a + 1.0, jac)
+    want = jfz.merge_stage_params(jm, params, jplan, jac2)
+    got = tfz.merge_stage_params(tm, tparams, tplan, to_torch(jac2))
+    _close_trees(got, want, dict(rtol=0, atol=0))
+
+
+@pytest.mark.parametrize("stage", [0, 1])
+def test_stage_loss_matches_reference(stage):
+    """Stage 1's frozen prefix holds a shared layer, run with the active
+    tied weights (and its prefix is therefore not static)."""
+    jcfg, tcfg = _cfgs(**F32)
+    jm, params, tm, tparams = _model_and_params(jcfg, tcfg)
+    jplan, tplan, jfr, jac, tfr, tac = _stage_trees(jm, params, tm, tparams,
+                                                    stage)
+    jb, tb = _batch(jcfg, seed=3)
+    want = jfz.stage_loss_fn(jm, jplan, remat=False)(jac, jfr, jb)
+    for remat in (False, True):
+        got = tfz.stage_loss_fn(tm, tplan, remat=remat)(tac, tfr, tb)
+        np.testing.assert_allclose(float(got), float(want), **F32_TOL)
+    assert not tfz.prefix_is_static(tplan)
+
+
+@pytest.mark.parametrize("stage", [0, 1])
+def test_fed_round_step_with_two_pods_matches_reference(stage):
+    jcfg, tcfg = _cfgs(**F32)
+    jm, params, tm, tparams = _model_and_params(jcfg, tcfg)
+    jplan, tplan, jfr, jac, tfr, tac = _stage_trees(jm, params, tm, tparams,
+                                                    stage)
+    pods, steps, b, s = 2, 2, 2, 16
+    d = j_batch(jcfg, pods * steps * b, s, seed=5)
+    jfed = {k: jnp.asarray(v).reshape((pods, steps, b, s)) for k, v in d.items()}
+    tfed = {k: torch.as_tensor(v).reshape(pods, steps, b, s) for k, v in d.items()}
+    w = np.asarray([1.0, 3.0], np.float32)
+    jstep = jfz.make_fed_round_step(jm, jplan, jsgd(0.05), num_pods=pods,
+                                    local_steps=steps, remat=False)
+    tstep = tfz.make_fed_round_step(tm, tplan, tsgd(0.05), num_pods=pods,
+                                    local_steps=steps, remat=False)
+    jnew, jmet = jstep(jac, jfr, jfed, jnp.asarray(w))
+    tnew, tmet = tstep(tac, tfr, tfed, torch.as_tensor(w))
+    np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]),
+                               **TRAJ_TOL)
+    _close_trees(tnew, jnew, TRAJ_TOL, BF16_LEAF_TOL)
+    # a tied set moves only where the active block holds an occurrence of
+    # it (layer 1 uses set 0, layer 3 set 1); set 0 in stage 1's frozen
+    # prefix gets no gradient
+    moved = {k: not torch.equal(tnew["shared_attn"][k]["mlp"]["up"]["w"],
+                                tac["shared_attn"][k]["mlp"]["up"]["w"])
+             for k in ("0", "1")}
+    assert moved == {"0": stage == 0, "1": stage == 1}
+
+
+# --------------------------------------------------------------------------
+# train()
+# --------------------------------------------------------------------------
+
+TEST_ARCH = "zamba2-7b-f32"
+
+
+@pytest.fixture
+def test_arch():
+    """A float32 Zamba2-7B, registered in both packages for the length of a
+    test."""
+    base = dict(name=TEST_ARCH, **F32)
+    jconfigs.register(dataclasses.replace(jconfigs.get(ARCH), **base))
+    tconfigs.register(dataclasses.replace(tconfigs.get(ARCH), **base))
+    yield TEST_ARCH
+    from repro.configs import base as jbase
+    from repro_torch.configs import base as tbase
+    jbase._REGISTRY.pop(TEST_ARCH, None)
+    tbase._REGISTRY.pop(TEST_ARCH, None)
+
+
+def _patch_port_init(monkeypatch, seed=0):
+    """The port's LM.init and output modules return the reference's."""
+    def init(self, generator):
+        jm = jtr.build(jconfigs.get(TEST_ARCH).reduced())
+        return to_torch(jm.init(jax.random.PRNGKey(seed)), self.device)
+
+    port_init_stage = tfz.init_stage_active
+
+    def init_stage(model, params, plan, generator):
+        frozen, active = port_init_stage(model, params, plan, generator)
+        if "op" in active:
+            jcfg = dataclasses.replace(jconfigs.get(TEST_ARCH).reduced(),
+                                       attention_impl=model.cfg.attention_impl)
+            jm = jtr.build(jcfg)
+            _, jac = jfz.init_stage_active(
+                jm, jm.init(jax.random.PRNGKey(seed)),
+                jfz.make_stage_plan(jcfg, plan.stage),
+                jax.random.PRNGKey(seed + 100 + plan.stage))
+            active["op"] = to_torch(jac["op"], model.device)
+        return frozen, active
+
+    monkeypatch.setattr(ttr.LM, "init", init)
+    monkeypatch.setattr(tfz, "init_stage_active", init_stage)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_train_trajectory_matches_reference(monkeypatch, test_arch,
+                                            use_pallas):
+    kw = dict(reduced=True, steps=4, batch=2, seq=32, use_pallas=use_pallas,
+              log_every=100, pace_kwargs=dict(min_rounds=1, mu=1,
+                                              slope_lambda=5e-3, fit_window=3))
+    want = jtrain_mod.train(test_arch, **kw)
+    _patch_port_init(monkeypatch)
+    before = (tfa.launches, tscan.launches)
+    got = ttrain_mod.train(test_arch, device="cpu", **kw)
+    assert (tfa.launches, tscan.launches) == before  # the CPU launches none
+    assert got["config"].attention_impl == ("pallas" if use_pallas else "xla")
+    assert [(h["stage"], h["round"]) for h in got["history"]] == \
+        [(h["stage"], h["round"]) for h in want["history"]]
+    assert len(got["history"]) == 4
+    for a, b in zip(got["history"], want["history"]):
+        np.testing.assert_allclose(a["loss"], b["loss"], **TRAJ_TOL)
+        assert (a["perturbation"] is None) == (b["perturbation"] is None)
+        if a["perturbation"] is not None:
+            np.testing.assert_allclose(a["perturbation"], b["perturbation"],
+                                       **TRAJ_TOL)
+    _close_trees(got["params"], want["params"], TRAJ_TOL)
+
+
+# --------------------------------------------------------------------------
+# decode and serve()
+# --------------------------------------------------------------------------
+
+
+def _tokens(cfg, B, T, seed=1):
+    return np.random.RandomState(seed).randint(0, cfg.vocab_size,
+                                               (B, T)).astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_init_cache_matches_reference_layout(dtype):
+    over = F32 if dtype == "float32" else {}
+    jcfg, tcfg = _cfgs(**over)
+    want = jtr.build(jcfg).init_cache(batch=3, max_seq=10)
+    got = ttr.build(tcfg, "cpu").init_cache(batch=3, max_seq=10)
+    assert jax.tree.structure(want) == jax.tree.structure(to_numpy(got))
+    for a, b in zip(tree_leaves(got), jax.tree.leaves(want)):
+        assert tuple(a.shape) == b.shape
+        assert a.dtype == getattr(torch, jnp.dtype(b.dtype).name)
+        assert not bool(a.any())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_step_matches_reference(dtype):
+    """Teacher-forced: the same tokens at every step, logits compared step
+    by step and every KV cache and Mamba2 state at the end."""
+    over = F32 if dtype == "float32" else {}
+    jcfg, tcfg = _cfgs(**over)
+    jm, params, tm, tparams = _model_and_params(jcfg, tcfg)
+    B, T, S = 2, 6, 9
+    toks = _tokens(jcfg, B, T, seed=4)
+    jcache = jm.init_cache(batch=B, max_seq=S)
+    tcache = tm.init_cache(batch=B, max_seq=S)
+    tol = F32_TOL if dtype == "float32" else LM_BF16_TOL
+    for t in range(T):
+        tok = toks[:, t:t + 1]
+        jlog, jcache = jm.decode_step(params, {"tokens": jnp.asarray(tok)},
+                                      jcache, jnp.int32(t))
+        tlog, out = tm.decode_step(tparams, {"tokens": torch.as_tensor(tok)},
+                                   tcache, t)
+        assert out is tcache and tlog.shape == (B, 1, tcfg.vocab_size)
+        np.testing.assert_allclose(_tnp(tlog), _np(jlog), **tol)
+    for a, b in zip(tree_leaves(tcache), jax.tree.leaves(jcache)):
+        np.testing.assert_allclose(_tnp(a), _np(b), **tol)
+
+
+def test_decode_matches_forward():
+    """T decode steps from an empty cache give the full forward's logits at
+    every position (the reference's test_decode_consistency, on the port
+    alone, with params drawn by the port)."""
+    tcfg = tconfigs.get(ARCH).reduced(**F32)
+    model = ttr.build(tcfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    # non-zero A_log and dt_bias, so the decays differ between heads
+    g = torch.Generator().manual_seed(1)
+    for i in ("0", "2"):
+        mix = params["segments"][i]["mix"]
+        mix["A_log"].normal_(generator=g)
+        mix["dt_bias"].normal_(generator=g)
+    B, T = 2, 8
+    toks = torch.as_tensor(_tokens(tcfg, B, T))
+    full, _ = model.forward(params, {"tokens": toks})
+    cache = model.init_cache(batch=B, max_seq=T)
+    for t in range(T):
+        logits, cache = model.decode_step(params, {"tokens": toks[:, t:t + 1]},
+                                          cache, t)
+        np.testing.assert_allclose(_tnp(logits[:, 0]), _tnp(full[:, t]),
+                                   **DECODE_TOL)
+
+
+@pytest.mark.parametrize("kw", [dict(batch=2, prompt_len=5, gen_len=7, seed=0),
+                                dict(batch=3, prompt_len=1, gen_len=4, seed=3)])
+def test_serve_trajectory_matches_reference(monkeypatch, capsys, test_arch, kw):
+    want = jserve_mod.serve(test_arch, **kw)
+    jline = capsys.readouterr().out
+
+    def init(self, generator):
+        jm = jtr.build(jconfigs.get(test_arch).reduced())
+        return to_torch(jm.init(jax.random.PRNGKey(kw["seed"])), self.device)
+
+    monkeypatch.setattr(ttr.LM, "init", init)
+    got = tserve_mod.serve(test_arch, device="cpu", **kw)
+    tline = capsys.readouterr().out
+    assert got["generated"].dtype == want["generated"].dtype == np.int32
+    np.testing.assert_array_equal(got["generated"], want["generated"])
+    assert tline.split(" in ")[0] == jline.split(" in ")[0]
+
+
+def test_xlstm_kinds_raise_naming_the_roadmap():
+    _, tcfg = _cfgs()
+    for fn in (tssm.mlstm_init, tssm.mlstm_forward, tssm.slstm_step):
+        with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+            fn(None, tcfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tconfigs.get("xlstm-350m")

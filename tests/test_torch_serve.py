@@ -133,7 +133,7 @@ def test_mla_decode_raises_naming_the_roadmap():
 def test_unported_layer_kinds_raise():
     _, tcfg = _cfgs()
     with pytest.raises(NotImplementedError, match="A15"):
-        ttr.layer_init_cache(tcfg, "mamba2", 1, 4, torch.float32, "cpu")
+        ttr.layer_init_cache(tcfg, "mlstm", 1, 4, torch.float32, "cpu")
     with pytest.raises(NotImplementedError, match="A15"):
         ttr.layer_decode({}, torch.zeros(1, 1, 64), {}, 0, tcfg, "attn_moe")
 

@@ -155,9 +155,9 @@ def test_unported_policies_and_run_arguments_raise():
 
 def test_port_imports_without_jax_or_reference():
     """Every module of the port imports with JAX and the JAX package
-    blocked, the LM and serving slices' modules among them, and registering
-    the dense configs pulls in nothing of either; chip_smoke.py imports
-    neither."""
+    blocked, the LM, serving and hybrid slices' modules among them, and
+    registering the ported configs pulls in nothing of either;
+    chip_smoke.py imports neither."""
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -170,11 +170,12 @@ def test_port_imports_without_jax_or_reference():
             "'repro_torch.models.attention', 'repro_torch.models.transformer', "
             "'repro_torch.core.freezing', 'repro_torch.kernels.flash_attention', "
             "'repro_torch.launch.train', 'repro_torch.kernels.decode_attention', "
-            "'repro_torch.launch.serve'):\n"
+            "'repro_torch.launch.serve', 'repro_torch.configs.zamba2_7b', "
+            "'repro_torch.models.ssm', 'repro_torch.kernels.ssm_scan'):\n"
             "    assert n in names, n\n"
             "from repro_torch import configs\n"
             "assert configs.names() == ['deepseek-coder-33b', 'llama3-8b', "
-            "'qwen2-72b']\n"
+            "'qwen2-72b', 'zamba2-7b']\n"
             "assert not any(k == 'jax' or k.startswith('jax.') or k == 'repro' "
             "or k.startswith('repro.') for k, v in sys.modules.items() "
             "if v is not None)\n")
