@@ -10,28 +10,35 @@ Phases, each of which exits non-zero on failure:
   3. hold each kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it, and time kernel, plain version, the
      one-call PyTorch yardstick, and the memory bound;
+ 3b. hold the block-perturbation reduction (B3), the pace controller's
+     Eq. 2 norms, against its plain version: f32, bf16 and mixed operands,
+     n from 3 to the Llama-3-8B stage-0 pace block and past 2^31,
+     misaligned views, extreme magnitudes, a NaN; equal bits on a rerun;
   4. drive the main path: ``SmartFreezeServer.run`` on full-width ResNet-18
      (4 stages x 2 rounds, 20 clients over 10,000 32x32 SyntheticVision
      samples, 6 clients a round, top-k uplinks at ratio 0.1), with every
-     kernel's launch count set to 0 just before and read just after;
+     kernel's launch count set to 0 just before and read just after (B1
+     and B3: the pace controller's window on the card);
   5. profile one stage-0 and one stage-3 round of that path: device time by
      kernel class and the device's idle share;
-  6. check the card's result against the port's CPU path on a small model;
+  6. check the card's result against the port's CPU path on a small model,
+     and the card's pace controller against the CPU path's on the same
+     blocks over a pace-decided run;
   7. hold the flash attention kernel (B4) against its plain version at the
      Llama-3-8B training shape and its variants (Zamba2-7B's head dim 112
-     among them), with its times;
+     and hubert-xlarge's 80 among them), with its times;
   8. drive the LM main path: ``launch/train.py:train`` on full-width
      Llama-3-8B (32 layers, 4 stages x 2 rounds, batch 4 x 1024 tokens),
      with every kernel's launch count set to 0 just before and read just
-     after;
-  9. profile one stage-0 and one stage-3 LM round: device time by kernel
-     class and the device's idle share;
+     after (B4, and B3 in the pace observe);
+  9. profile one stage-0 and one stage-3 LM round, the round step and the
+     pace observe: device time by kernel class and the idle share;
  10. check the card's LM result against the port's CPU path on a small
-     model;
+     model, and the card's pace controller against the CPU path's;
  11. free the training phases' memory, then hold the flash-decode kernel
      (B6) against its plain version at the Llama-3-8B serving shape, the
-     decode_32k cut and its variants (Zamba2-7B's head dim 112 among
-     them), with its times;
+     decode_32k cut and its variants (Zamba2-7B's head dim 112 and
+     hubert-xlarge's 80 among them), with its times;
  12. drive the serving path: ``launch/serve.py:serve`` on full-width
      Llama-3-8B (batch 8, 960 prompt + 64 generated tokens: 1,024 decode
      steps), with every kernel's launch count set to 0 just before and read
@@ -52,7 +59,8 @@ Phases, each of which exits non-zero on failure:
      launch count set to 0 just before and read just after;
  17. profile one stage-0 and one stage-5 hybrid round;
  18. check the card's hybrid training against the port's CPU path on a
-     small model;
+     small model, and the card's anchored pace window against the CPU
+     path's;
  19. drive hybrid serving: ``launch/serve.py:serve`` on full-width
      Zamba2-7B (batch 8, 192 prompt + 64 generated tokens: 256 decode
      steps), counts set to 0 before and read after; then time and profile
@@ -83,6 +91,7 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 # and float32 FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+F64_FLOPS = 34e12
 BF16_FLOPS = 989e12
 RATIO = 0.1
 COHORT = 6
@@ -230,6 +239,155 @@ def phase_sparse_agg():
             "shape": {"K": top["K"], "k": top["k"], "L": top["L"]}}
 
 
+def _layer_leaves(cfg, kind):
+    """One layer of ``kind`` as meta tensors: the shapes ``layer_init``
+    gives, with no memory behind them."""
+    import torch
+    from repro_torch.models.module import ParamFactory, tree_leaves
+    from repro_torch.models.transformer import layer_init
+
+    class Meta(ParamFactory):
+        def param(self, shape, *, init="normal", scale=1.0, fan_in=None,
+                  dtype=None):
+            full = ((self.stack,) if self.stack else ()) + tuple(shape)
+            return torch.empty(full, dtype=dtype or self.dtype, device="meta")
+    return tree_leaves(layer_init(Meta(None, "meta", torch.bfloat16), cfg,
+                                  kind))
+
+
+def _pace_block(cfg, stage):
+    """(leaves, elements) of the block the LM path's pace controller
+    observes at ``stage``: the active runs' stacked layers (the shared
+    attention sets and the output module are not in it)."""
+    from repro_torch.core import freezing
+    leaves = n = 0
+    for region, kind, _, a, b in freezing.make_stage_plan(cfg, stage).runs:
+        if region == "active" and kind != "shared_attn":
+            layer = _layer_leaves(cfg, kind)
+            leaves += len(layer)
+            n += (b - a) * sum(l.numel() for l in layer)
+    return leaves, n
+
+
+def _plain_sqnorm(a, b, chunk=1 << 26):
+    """The plain version of B3 over chunks of 2^26 elements, summed in f64,
+    so that its f32 and f64 temporaries stay under 1 GB at any n."""
+    import torch
+    from repro_torch.kernels import ref
+    parts = [ref.diff_sqnorm_ref(a[i:i + chunk], b[i:i + chunk])
+             for i in range(0, a.numel(), chunk)]
+    return torch.stack(parts).sum()
+
+
+# |kernel - plain| <= B3_RTOL |plain|: both square and sum in f64 (the
+# differences are the same f32 values), in other orders
+B3_RTOL = 1e-12
+
+
+def phase_block_perturb():
+    """Kernel B3 against its plain version (chunked, f64) on the card:
+    f32/f32, bf16/bf16 and bf16/f32 operands (the pace controller diffs
+    bf16 leaves against f32 snapshots), n from 3 up to the Llama-3-8B
+    stage-0 block's length, one bf16 pair past 2^31 elements, views at
+    element offsets that are not 16-byte aligned (some never align in
+    both), magnitudes 1e-20 and 1e15, and a NaN, which must give NaN. Two
+    runs must give equal bits. Times the kernel, the plain version and,
+    on f32 pairs, ``torch.dist`` (squared) as the one-call yardstick.
+    Bound: each operand read once over 3.35 TB/s, against n f32 subtracts
+    at 67 TFLOP/s and 2n f64 operations (the fused multiply-add) at 34."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import block_perturb as bp
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _, n0 = _pace_block(configs.get("llama3-8b"), 0)
+    print(f"block_perturb: Llama-3-8B stage-0 pace block n={n0}")
+
+    def pair(n, da, db, off_a=0, off_b=0, magnitude=1.0):
+        out = []
+        for dt, off in ((da, off_a), (db, off_b)):
+            t = torch.randn(n + off, generator=gen, device=dev,
+                            dtype=getattr(torch, dt))
+            out.append(t.mul_(magnitude)[off:])
+        return out
+
+    f32, bf16 = "float32", "bfloat16"
+    # (name, n, a dtype, b dtype, a offset, b offset, magnitude, timed)
+    cases = [("n=3", 3, f32, f32, 0, 0, 1.0, False),
+             ("n=4097 bf16", 4097, bf16, bf16, 0, 0, 1.0, False),
+             ("n=1e6+3 mixed", 10 ** 6 + 3, bf16, f32, 0, 0, 1.0, False),
+             ("1e-20", 10_001, f32, f32, 0, 0, 1e-20, False),
+             ("1e15", 10_001, f32, f32, 0, 0, 1e15, False),
+             ("1e15 mixed", 4097, bf16, f32, 0, 0, 1e15, False),
+             ("views +1/+3", 10 ** 7 + 5, f32, f32, 1, 3, 1.0, False),
+             ("views +3/+1 mixed", 10 ** 7 + 5, bf16, f32, 3, 1, 1.0, False),
+             ("views +1/+2 mixed", 10 ** 7 + 5, bf16, f32, 1, 2, 1.0, False),
+             ("views +1/+0 bf16", 10 ** 7 + 5, bf16, bf16, 1, 0, 1.0, False),
+             ("block f32", n0, f32, f32, 0, 0, 1.0, True),
+             ("block mixed", n0, bf16, f32, 0, 0, 1.0, True),
+             ("block bf16", n0, bf16, bf16, 0, 0, 1.0, True),
+             ("n>2^31 bf16", 2 ** 31 + 4099, bf16, bf16, 0, 0, 1.0, True)]
+    rows, worst_abs, worst_rel = {}, 0.0, 0.0
+    for name, n, da, db, off_a, off_b, mag, timed in cases:
+        a, b = pair(n, da, db, off_a, off_b, mag)
+        got = bp.diff_sqnorm_f64(a, b)
+        again = bp.diff_sqnorm_f64(a, b)
+        want = _plain_sqnorm(a, b)
+        got, again, want = got.item(), again.item(), want.item()
+        err = abs(got - want)
+        rel = err / abs(want)
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+        aligned = all(t.data_ptr() % 16 == 0 for t in (a, b))
+        line = (f"diff_sqnorm {name:>18} n={n} {da}/{db} aligned={aligned} "
+                f"sum={got!r} plain={want!r} rel_err={rel:.3e}")
+        if timed:
+            ms = _time_ms(lambda: bp.diff_sqnorm_f64(a, b), reps=10)
+            call_ms = _call_ms(lambda: bp.diff_sqnorm_f64(a, b), reps=5)
+            plain_ms = _time_ms(lambda: _plain_sqnorm(a, b), reps=2)
+            library_ms = None
+            if da == db == f32:
+                dist = torch.dist(a, b).item() ** 2
+                library_ms = _time_ms(lambda: torch.dist(a, b), reps=5)
+                line += f" torch.dist^2={dist!r}"
+            nbytes = n * (a.element_size() + b.element_size())
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = n / F32_FLOPS + 2 * n / F64_FLOPS
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            line += (f" ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+                     f"{library_ms} bound_ms={bound_ms:.4f} ({bound_by}) "
+                     f"bound_share={bound_ms / ms:.3f} call_ms={call_ms:.4f}")
+            rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              call_ms=call_ms, shape=dict(n=n, a=da, b=db))
+        print(line)
+        if got != again:
+            raise AssertionError(f"diff_sqnorm at {name}: two runs differ "
+                                 f"({got!r}, {again!r})")
+        if not math.isfinite(want) or not rel <= B3_RTOL:
+            raise AssertionError(f"diff_sqnorm disagrees with its plain "
+                                 f"version at {name}: {got!r} vs {want!r}")
+        del a, b
+        torch.cuda.empty_cache()
+    a, b = pair(100_003, f32, f32)
+    a[54_321] = float("nan")
+    got, want = bp.diff_sqnorm_f64(a, b).item(), _plain_sqnorm(a, b).item()
+    print(f"diff_sqnorm with a NaN: {got!r} (plain {want!r})")
+    if not (math.isnan(got) and math.isnan(want)):
+        raise AssertionError("diff_sqnorm does not propagate a NaN")
+    top = rows["block f32"]
+    return {"name": "diff_sqnorm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/block_perturb.cu",
+            "replaces": "src/repro/kernels/block_perturb.py:39",
+            "launches": None, "max_abs_err": worst_abs,
+            "max_rel_err": worst_rel, "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            "call_ms": top["call_ms"], "shape": top["shape"],
+            "mixed": rows["block mixed"], "bf16": rows["block bf16"],
+            "past_2_31": rows["n>2^31 bf16"]}
+
+
 def _fleet(n_samples, n_clients, image_size, num_classes, seed=0):
     from repro_torch.data.partition import dirichlet_partition
     from repro_torch.data.synthetic import SyntheticVision
@@ -242,6 +400,29 @@ def _fleet(n_samples, n_clients, image_size, num_classes, seed=0):
             sv.sample(1000, seed=2))
 
 
+class _timed_observes:
+    """Records the wall ms of every ``PaceController.observe`` inside the
+    ``with`` (each ends in the observe's own device sync: the finiteness
+    check, and the norms' read-back when it takes them)."""
+
+    def __enter__(self):
+        from repro_torch.core import pace
+        self.cls = pace.PaceController
+        self.observe = observe = self.cls.observe
+        ms = []
+
+        def timed(ctl, block):
+            t0 = time.perf_counter()
+            out = observe(ctl, block)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        self.cls.observe = timed
+        return ms
+
+    def __exit__(self, *exc):
+        self.cls.observe = self.observe
+
+
 def phase_main_path(card):
     """Full-width ResNet-18 through SmartFreezeServer.run on the card.
     CIFAR-10's 50,000 training images are cut to 10,000 SyntheticVision
@@ -249,7 +430,7 @@ def phase_main_path(card):
     import torch
     from repro_torch.core import freezing_cnn as fz
     from repro_torch.fl.server import SmartFreezeServer
-    from repro_torch.kernels import sparse_agg
+    from repro_torch.kernels import block_perturb, sparse_agg
     from repro_torch.models.cnn import CNN, RESNET18
     from repro_torch.models.module import tree_leaves
     dev = torch.device("cuda")
@@ -275,21 +456,25 @@ def phase_main_path(card):
         return acc
 
     torch.cuda.reset_peak_memory_stats()
-    sparse_agg.launches = 0
-    torch.cuda.synchronize()
-    t_start = time.perf_counter()
-    out = srv.run(params, state, eval_fn=eval_fn, eval_every=1,
-                  schedule=[2, 2, 2, 2])
-    torch.cuda.synchronize()
-    launches = sparse_agg.launches
+    with _timed_observes() as observe_ms:
+        sparse_agg.launches = block_perturb.launches = 0
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        out = srv.run(params, state, eval_fn=eval_fn, eval_every=1,
+                      schedule=[2, 2, 2, 2])
+        torch.cuda.synchronize()
+        launches = sparse_agg.launches
+        b3_launches = block_perturb.launches
     total_s = time.perf_counter() - t_start
     prev_end = t_start
-    for rr, (t_in, t_out) in zip(out["history"], marks):
+    for rr, (t_in, t_out), o_ms in zip(out["history"], marks, observe_ms):
         wall_ms = (t_in - prev_end) * 1e3
         prev_end = t_out
         print(f"round {rr.round_idx} stage {rr.stage} loss {rr.loss:.4f} "
-              f"wall_ms {wall_ms:.1f} uplink_bytes {rr.uplink_bytes} "
-              f"test_acc {rr.test_acc:.3f} cohort {rr.selected}")
+              f"wall_ms {wall_ms:.1f} pace_observe_ms {o_ms:.2f} "
+              f"perturbation {rr.perturbation} uplink_bytes "
+              f"{rr.uplink_bytes} test_acc {rr.test_acc:.3f} cohort "
+              f"{rr.selected}")
     print("(round 0's wall time includes the Eq. 8 similarity bootstrap; "
           "each stage's first round includes its feature-cache fill)")
     print(f"main path seconds {total_s:.2f} on {card}")
@@ -301,16 +486,22 @@ def phase_main_path(card):
     leaves = [l for l in tree_leaves(out["params"]) + tree_leaves(out["state"])]
     assert all(l.device.type == "cuda" for l in leaves)
     assert all(bool(torch.isfinite(l).all()) for l in leaves)
-    expected = 0
-    for rr in hist:
+    expected = expected_b3 = 0
+    for i, rr in enumerate(hist):
         _, active = fz.init_cnn_stage_active(model, out["params"], rr.stage,
                                              torch.Generator().manual_seed(0))
         plan = srv._cache_plan(rr.stage)
         groups = len({plan.get(c) is not None for c in rr.selected})
         expected += len(tree_leaves(active)) * groups
-    print(f"sparse_cohort_add launches {launches} (expected {expected})")
+        # the pace controller's observe of the stage's block: two B3
+        # launches a leaf once it holds a previous snapshot
+        if i and hist[i - 1].stage == rr.stage:
+            expected_b3 += 2 * len(tree_leaves(active.get("stages", active)))
+    print(f"sparse_cohort_add launches {launches} (expected {expected}); "
+          f"diff_sqnorm launches {b3_launches} (expected {expected_b3})")
     assert launches == expected > 0, (launches, expected)
-    return launches
+    assert b3_launches == expected_b3 > 0, (b3_launches, expected_b3)
+    return launches, b3_launches
 
 
 def _kernel_class(name):
@@ -323,6 +514,8 @@ def _kernel_class(name):
         return "decode_attention (B6)"
     if "ssd_scan" in low:
         return "ssd_scan (B5)"
+    if "diff_sqnorm" in low:
+        return "diff_sqnorm (B3)"
     if "softmax" in low:
         return "softmax"
     if "nvjet" in low or "cublas" in low or "cutlass" in low:
@@ -397,6 +590,83 @@ def phase_profile(card):
             print(f"  {cls:>20}: {us / 1e3:9.2f} ms")
 
 
+PACE_FIELDS = ("window_q", "smooth_h", "slope_lambda", "mu", "fit_window",
+               "min_rounds", "low_memory")
+# the card's perturbations against the CPU path's on the same blocks: both
+# take the f32 differences, square and sum them in f64, in other orders
+PACE_RTOL = 1e-9
+
+
+class _pace_shadowed:
+    """Inside the ``with``, every pace controller that observes a card block
+    has a shadow: a controller of the same settings fed the same block
+    copied to the host, which takes the CPU path (the numpy window, bit for
+    bit the reference). ``should_freeze`` is asked of both. Yields the list
+    of (card controller, shadow, [(card flag, shadow flag), ...])."""
+
+    def __enter__(self):
+        from repro_torch.core import pace
+        from repro_torch.models.module import tree_map
+        self.cls = pace.PaceController
+        self.saved = (self.cls.observe, self.cls.should_freeze)
+        observe, should = self.saved
+        pairs, by_id = [], {}
+
+        def shadowed_observe(ctl, block):
+            out = observe(ctl, block)
+            if id(ctl) not in by_id:
+                shadow = self.cls(**{f: getattr(ctl, f) for f in PACE_FIELDS})
+                by_id[id(ctl)] = (ctl, shadow, [])
+                pairs.append(by_id[id(ctl)])
+            observe(by_id[id(ctl)][1],
+                    tree_map(lambda leaf: leaf.detach().cpu(), block))
+            return out
+
+        def shadowed_should(ctl):
+            got = should(ctl)
+            if id(ctl) in by_id:
+                _, shadow, flags = by_id[id(ctl)]
+                flags.append((got, should(shadow)))
+            return got
+
+        self.cls.observe = shadowed_observe
+        self.cls.should_freeze = shadowed_should
+        return pairs
+
+    def __exit__(self, *exc):
+        self.cls.observe, self.cls.should_freeze = self.saved
+
+
+def _check_pace_shadows(pairs, what):
+    """Every card controller's window lived on the card, its perturbation
+    series is its shadow's (the CPU path's) within PACE_RTOL, and the two
+    gave the same freeze flag at every round. Returns the card
+    controllers' freeze flags."""
+    import numpy as np
+    from repro_torch.core import pace
+    flags, norms = [], 0
+    for card, shadow, pair_flags in pairs:
+        assert isinstance(card._win, pace._TensorWindow), type(card._win)
+        assert isinstance(shadow._win, pace._HostWindow), type(shadow._win)
+        hc, hs = card.history, shadow.history
+        assert (hc["rounds"], hc["skipped"]) == (hs["rounds"], hs["skipped"])
+        np.testing.assert_allclose(hc["perturbation"], hs["perturbation"],
+                                   rtol=PACE_RTOL, atol=0)
+        np.testing.assert_allclose(hc["smoothed"], hs["smoothed"],
+                                   rtol=PACE_RTOL, atol=0)
+        assert all(a == b for a, b in pair_flags), pair_flags
+        flags += [a for a, _ in pair_flags]
+        norms += len(hc["perturbation"])
+        worst = max((abs(a - b) / abs(b) for a, b in zip(
+            hc["perturbation"], hs["perturbation"]) if b), default=0.0)
+        print(f"  {what}: card pace == CPU pace on {len(pair_flags)} rounds, "
+              f"perturbations {['%.6g' % p for p in hc['perturbation']]} "
+              f"(max rel diff {worst:.2e}), freeze flags "
+              f"{[a for a, _ in pair_flags]}")
+    assert norms > 0, "no observe took the Eq. 2 norms"
+    return flags
+
+
 def phase_small_reference():
     """The port on the card against the port on the CPU (itself held
     against the JAX package by tests/test_torch_server.py), on a small
@@ -434,6 +704,25 @@ def phase_small_reference():
         np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=1e-3,
                                    atol=1e-5)
     print("small model: card == CPU path (rtol 1e-3, atol 1e-5)")
+    # the pace controller deciding: 10 rounds over the 2 stages, the exact
+    # window of the default Q = 5, freezes allowed from round 3
+    from repro_torch.kernels import block_perturb
+    model = CNN(cfg, device="cuda")
+    srv = SmartFreezeServer(model, clients, clients_per_round=3,
+                            batch_size=16, compress_ratio=1.0, seed=0,
+                            device="cuda", pace_kwargs=dict(
+                                min_rounds=3, mu=1, slope_lambda=5e-2,
+                                fit_window=3))
+    before = block_perturb.launches
+    with _pace_shadowed() as pairs:
+        out = srv.run(to_torch(to_numpy(params), "cuda"),
+                      to_torch(to_numpy(state), "cuda"), total_rounds=10)
+    assert block_perturb.launches > before
+    flags = _check_pace_shadows(pairs, "small CNN")
+    stages = [r.stage for r in out["history"]]
+    assert [r.frozen for r in out["history"]] == flags
+    print(f"small model: pace-decided stages {stages} (card pace == CPU "
+          f"pace, rtol {PACE_RTOL})")
 
 # (name, B, S, Hq, Hkv, d, dtype, causal): the first is the LM main path's
 # shape (Llama-3-8B, batch 4 x 1024 tokens)
@@ -444,10 +733,17 @@ FLASH_CASES = [("main", 4, 1024, 32, 8, 128, "bfloat16", True),
                ("g=1", 4, 1024, 32, 32, 128, "bfloat16", True),
                ("d=16 f32", 4, 1024, 4, 2, 16, "float32", True),
                # Zamba2-7B's shared attention and proxy layers
-               ("d=112 g=1", 4, 1024, 32, 32, 112, "bfloat16", True)]
-# bf16: two bf16 ulps at magnitude 1 (the kernel rounds p to bf16 before
-# p v; both sides round the output to bf16). f32: summation order only.
-FLASH_TOL = {"bfloat16": (1.6e-2, 1.6e-2), "float32": (1e-5, 1e-5)}
+               ("d=112 g=1", 4, 1024, 32, 32, 112, "bfloat16", True),
+               # hubert-xlarge's encoder: 16 heads of 80, full attention
+               ("d=80 hubert", 4, 1024, 16, 16, 80, "bfloat16", False),
+               ("d=80 f32", 2, 1000, 16, 4, 80, "float32", True)]
+# (rtol, atol) of |err| <= atol + rtol |plain|. bf16: rtol 2^-7, PR 13's,
+# is one or two ulps of the output's own magnitude (the kernel carries p as
+# two bf16 terms, so both versions compute in f32 and round once to bf16);
+# atol 1e-5 covers outputs near zero, where q k^T's f32 sums on the tensor
+# cores leave about 1e-6 of every output (B6, on the CUDA cores, takes
+# 1e-6). f32: summation order only.
+FLASH_TOL = {"bfloat16": (2 ** -7, 1e-5), "float32": (1e-5, 1e-5)}
 
 
 def _sdpa(q, k, v, causal, scale):
@@ -463,7 +759,11 @@ def _sdpa(q, k, v, causal, scale):
 def phase_flash_attention():
     """Kernel B4 against its plain version (f32 scores and softmax, output
     in the input dtype) at the main path's shape and its variants: ragged S,
-    a long sequence, full attention, g = 1, and f32 at head_dim 16. Bound:
+    a long sequence, full attention, g = 1, f32 at head_dim 16, Zamba2-7B's
+    head dim 112 and hubert-xlarge's 80 (its encoder's full attention, bf16
+    and f32). Without the causal mask, the plain version one key short must
+    break the bound somewhere, so that an off-by-one kernel could not pass
+    it. Bound:
     the larger of (q, k, v, o bytes once) / 3.35 TB/s and the flops these
     inputs need (4 B Hq d per (query, key) pair: S (S + 1) / 2 pairs when
     causal, S^2 when not) / the peak of the dtype's unit (989 TFLOP/s bf16
@@ -502,15 +802,37 @@ def phase_flash_attention():
         bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
         bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S > flops / peak
                     else "operations")
+        # ulps where the relative term of the bound dominates (|plain| >=
+        # atol / rtol); nearer zero a sign flip is many ulps and the floor
+        # holds it
+        big = want.float().abs() >= atol / rtol
+        ulps = (_bf16_ulps(got[big], want[big])
+                if dtype == "bfloat16" and bool(big.any()) else None)
+        # the least atol that this case's errors need beside rtol |plain|
+        need_atol = float((err - rtol * want.float().abs()).max())
+        # without the causal mask, the plain version one key short must
+        # break the bound somewhere
+        sees_off = causal
+        if not causal:
+            off = ref.flash_attention_ref(q, k[:, :-1], v[:, :-1],
+                                          causal=False, scale=scale)
+            sees_off = bool(((off.float() - want.float()).abs()
+                             > atol + rtol * want.float().abs()).any())
+            del off
         print(f"flash_attention {name:>14} B={B} S={S} Hq={Hq} Hkv={Hkv} "
               f"d={d} {dtype} causal={causal} max_abs_err={max_err:.3e} "
+              f"max_ulps_off_floor={ulps} needed_atol={need_atol:.2e} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
               f"{library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
               f"bound_share={bound_ms / ms:.3f} call_ms={call_ms:.4f}")
         if bad:
             raise AssertionError(f"flash_attention disagrees with its plain "
                                  f"version at {name}: max_abs_err {max_err}")
-        rows.append(dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        if not sees_off:
+            raise AssertionError(f"the tolerance at {name} does not tell the "
+                                 "plain version from itself one key off")
+        rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, max_ulps=ulps,
                          bound_ms=bound_ms, bound_by=bound_by,
                          call_ms=call_ms, shape=dict(B=B, S=S, Hq=Hq, Hkv=Hkv,
                                                      d=d, dtype=dtype,
@@ -524,27 +846,34 @@ def phase_flash_attention():
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
             "call_ms": top["call_ms"], "shape": top["shape"],
-            "d112": rows[-1]}  # Zamba2-7B's shape
+            # Zamba2-7B's and hubert-xlarge's shapes
+            "d112": next(r for r in rows if r["name"] == "d=112 g=1"),
+            "d80": next(r for r in rows if r["name"] == "d=80 hubert")}
 
 
 LM_PACE = dict(min_rounds=3, mu=2, slope_lambda=5e-3, low_memory=True)
 
 
 def _expected_lm_launches(cfg, history):
-    """(flash attention, SSD scan) launches of the rounds in ``history``:
-    one per attention layer and one per Mamba2 layer that a round's forward
-    runs. Stage t runs layers [0, b_{t+1}) (frozen prefix and active block)
-    and T - t - 1 proxy attention layers of its output module; neither
-    backward launches a kernel (both are autograd through plain forms)."""
+    """(flash attention, SSD scan, block perturbation) launches of the
+    rounds in ``history``: one per attention layer and one per Mamba2 layer
+    that a round's forward runs. Stage t runs layers [0, b_{t+1}) (frozen
+    prefix and active block) and T - t - 1 proxy attention layers of its
+    output module; neither backward launches a kernel (both are autograd
+    through plain forms). The pace controller's observe launches B3 twice
+    per leaf of the stage's block once it holds a previous snapshot: in
+    every round of a stage but the first."""
     from repro_torch.core import freezing
     kinds = cfg.layer_kinds()
-    flash = ssd = 0
-    for h in history:
+    flash = ssd = b3 = 0
+    for i, h in enumerate(history):
         hi = freezing.make_stage_plan(cfg, h["stage"]).hi
         mamba = sum(k == "mamba2" for k in kinds[:hi])
         ssd += mamba
         flash += hi - mamba + (cfg.num_freeze_blocks - h["stage"] - 1)
-    return flash, ssd
+        if i and history[i - 1]["stage"] == h["stage"]:
+            b3 += 2 * _pace_block(cfg, h["stage"])[0]
+    return flash, ssd, b3
 
 
 F32_PARAMS = ("A_log", "D", "dt_bias")
@@ -564,36 +893,28 @@ def _peak_rss_bytes():
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
-def phase_lm_main_path(card, arch="llama3-8b", steps=8, expect=(172, 0)):
+def phase_lm_main_path(card, arch="llama3-8b", steps=8, expect=(172, 0, 72)):
     """Full width ``arch`` through launch/train.py:train on the card, bf16,
     random params from a seed, ``steps`` rounds of batch 4 x 1024 tokens
     spread evenly over the stages, one pod. Llama-3-8B: 32 layers, d_model
     4096, 32 q / 8 kv heads, vocab 128256, 4 stages x 2 rounds. Zamba2-7B:
     81 layers (68 Mamba2, 13 shared attention over 2 tied sets), d_model
-    3584, 6 stages x 1 round. The pace controller's anchored
-    window (low_memory) keeps two host copies of the active block instead
-    of six. ``expect`` is (flash attention, SSD scan) launches, as
-    ``_expected_lm_launches`` counts them. Returns the launches, the
-    trained params and the config."""
+    3584, 6 stages x 1 round. The pace controller's anchored window
+    (low_memory) keeps two f32 copies of the active block on the card
+    instead of six (the exact window does not fit beside the round's
+    transients) and takes its norms with B3. ``expect`` is (flash
+    attention, SSD scan, B3) launches, as ``_expected_lm_launches`` counts
+    them. Returns the launches, the trained params and the config."""
     import torch
-    from repro_torch.core import pace
+    from repro_torch.kernels import block_perturb
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import sparse_agg, ssm_scan
     from repro_torch.launch.train import train
     from repro_torch.models.module import tree_leaves
-    observe_ms = []
-    observe = pace.PaceController.observe
-
-    def timed_observe(self, block):
-        t0 = time.perf_counter()
-        out = observe(self, block)
-        observe_ms.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    pace.PaceController.observe = timed_observe
-    try:
+    with _timed_observes() as observe_ms:
         torch.cuda.reset_peak_memory_stats()
         fa.launches = sparse_agg.launches = ssm_scan.launches = 0
+        block_perturb.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = train(arch, reduced=False, steps=steps, batch=4, seq=1024,
@@ -601,14 +922,14 @@ def phase_lm_main_path(card, arch="llama3-8b", steps=8, expect=(172, 0)):
                     log_every=1, device="cuda")
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
-        launches = (fa.launches, ssm_scan.launches)
-    finally:
-        pace.PaceController.observe = observe
+        launches = (fa.launches, ssm_scan.launches, block_perturb.launches)
     hist, cfg = out["history"], out["config"]
     for h, o_ms in zip(hist, observe_ms):
+        leaves, n = _pace_block(cfg, h["stage"])
         print(f"{arch} stage {h['stage']} round {h['round']} loss "
               f"{h['loss']:.4f} round_wall_ms {h['seconds'] * 1e3:.1f} "
-              f"pace_observe_host_ms {o_ms:.1f}")
+              f"pace_observe_ms {o_ms:.2f} (block n={n}, {leaves} leaves) "
+              f"perturbation {h['perturbation']}")
     print(f"{arch} main path seconds {total_s:.2f} (model init included) on "
           f"{card}")
     print(f"{arch} torch.cuda.max_memory_allocated "
@@ -626,8 +947,8 @@ def phase_lm_main_path(card, arch="llama3-8b", steps=8, expect=(172, 0)):
         want = torch.float32 if key in F32_PARAMS else torch.bfloat16
         assert leaf.dtype == want, (key, leaf.dtype)
     expected = _expected_lm_launches(cfg, hist)
-    print(f"{arch} flash_attention, ssd_scan launches {launches} (expected "
-          f"{expected})")
+    print(f"{arch} flash_attention, ssd_scan, diff_sqnorm launches "
+          f"{launches} (expected {expected})")
     assert launches == expected == expect, (launches, expected)
     assert sparse_agg.launches == 0
     return launches, out["params"], cfg
@@ -643,7 +964,7 @@ def _device_ms_by_class(prof):
     return {cls: us / 1e3 for cls, us in by_class.items()}
 
 
-def phase_lm_profile(card, params, cfg, stages=(0, 3)):
+def phase_lm_profile(card, params, cfg, stages=(0, 3), exact_raises=False):
     """Where an LM round's time goes, at the first of ``stages`` (the
     embedding stage, with the most proxy layers; Llama-3-8B: 8 trained
     layers and 3 proxies) and the last (the deepest frozen prefix and the
@@ -651,9 +972,12 @@ def phase_lm_profile(card, params, cfg, stages=(0, 3)):
     what train() runs per round: the federated round
     step, then the pace controller's observe of the active block. The step:
     one warm-up, one timed on the host clock, one under torch.profiler. The
-    observe: the warm-up's (a first snapshot) is not counted; the next one,
-    which takes the two Eq. 2 norms, is timed on the host clock and profiled
-    on its own."""
+    observe: the warm-up's (a first snapshot) is not counted; of the next
+    two, which take the two Eq. 2 norms, one is timed on the host clock
+    (ending in a synchronize, since the snapshot's write is still queued
+    when observe returns) and one profiled. ``exact_raises``: after the warm-up step, an exact window
+    (the default Q+1 = 6 copies) must refuse the block before allocating
+    anything, and name ``low_memory=True``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import freezing
@@ -684,6 +1008,17 @@ def phase_lm_profile(card, params, cfg, stages=(0, 3)):
             torch.cuda.synchronize()
 
         one_step(0)
+        if exact_raises:
+            held = torch.cuda.memory_allocated()
+            try:
+                PaceController().observe(box["active"]["runs"])
+            except ValueError as e:
+                assert "low_memory=True" in str(e), e
+                assert torch.cuda.memory_allocated() == held
+                print(f"  exact pace window refused: {e}")
+            else:
+                raise AssertionError("an exact pace window of the full-width "
+                                     "block was accepted")
         ctl.observe(box["active"]["runs"])
         t0 = time.perf_counter()
         one_step(1)
@@ -692,13 +1027,15 @@ def phase_lm_profile(card, params, cfg, stages=(0, 3)):
             one_step(2)
         step_dev = _device_ms_by_class(prof)
         t0 = time.perf_counter()
+        ctl.observe(box["active"]["runs"])
+        torch.cuda.synchronize()  # the snapshot's write runs after the norms
+        obs_ms = (time.perf_counter() - t0) * 1e3
         with profile(activities=acts) as prof:
             ctl.observe(box["active"]["runs"])
             torch.cuda.synchronize()
-        obs_ms = (time.perf_counter() - t0) * 1e3
         obs_dev = _device_ms_by_class(prof)
         print(f"{cfg.name} profile stage {stage} on {card}: round step wall_ms "
-              f"{step_ms:.1f}, pace observe host_ms {obs_ms:.1f}")
+              f"{step_ms:.1f}, pace observe wall_ms {obs_ms:.2f}")
         if not step_dev:
             print("  torch.profiler recorded no device time: not measured")
         else:
@@ -707,8 +1044,9 @@ def phase_lm_profile(card, params, cfg, stages=(0, 3)):
                   f"{1 - busy / step_ms:.3f}")
             for cls, ms in sorted(step_dev.items(), key=lambda kv: -kv[1]):
                 print(f"  {cls:>20}: {ms:9.2f} ms")
-            print(f"  observe: device busy ms {obs_busy:.1f} ("
-                  + ", ".join(f"{c} {m:.1f}" for c, m in sorted(
+            print(f"  observe: device busy ms {obs_busy:.2f}, idle share "
+                  f"{1 - obs_busy / obs_ms:.3f} ("
+                  + ", ".join(f"{c} {m:.2f}" for c, m in sorted(
                       obs_dev.items(), key=lambda kv: -kv[1])) + ")")
             print(f"  round (step + observe): idle share "
                   f"{1 - (busy + obs_busy) / (step_ms + obs_ms):.3f}")
@@ -808,6 +1146,21 @@ def phase_small_lm_reference(arch="llama3-8b"):
         np.testing.assert_allclose(y.float().cpu().numpy(), x.float().numpy(),
                                    rtol=1e-3, atol=1e-5)
     print(f"small {arch}: card == CPU path (rtol 1e-3, atol 1e-5)")
+    # the pace controller deciding: 6 rounds a stage at most, freezes
+    # allowed from round 3; Llama with the exact window, Zamba2 anchored
+    from repro_torch.kernels import block_perturb
+    low_memory = configs.get(arch).family == "hybrid"
+    before = block_perturb.launches
+    with _pace_shadowed() as pairs:
+        out = train(name, reduced=True, steps=12, batch=2, seq=64,
+                    use_pallas=True, log_every=100, device="cuda",
+                    pace_kwargs=dict(min_rounds=3, mu=1, slope_lambda=5e-2,
+                                     fit_window=3, low_memory=low_memory))
+    assert block_perturb.launches > before
+    _check_pace_shadows(pairs, f"small {arch}")
+    stages = [h["stage"] for h in out["history"]]
+    print(f"small {arch}: pace-decided stages {stages} (low_memory="
+          f"{low_memory}; card pace == CPU pace, rtol {PACE_RTOL})")
 
 
 # (name, B, S, Hq, Hkv, d, dtype, lengths): the first three are the serving
@@ -829,7 +1182,11 @@ def _decode_cases():
              [1024, 0, 7, 513, 1024, 100, 1023, 2]),
             # Zamba2-7B's serving shape: 192 + 64 tokens, head dim 112
             ("d=112 g=1", 8, 256, 32, 32, 112, "bfloat16",
-             [256, 1, 255, 128, 0, 64, 200, 17])]
+             [256, 1, 255, 128, 0, 64, 200, 17]),
+            # hubert-xlarge's width, 16 heads of 80, at ragged lengths
+            ("d=80 hubert", 8, 1024, 16, 16, 80, "bfloat16",
+             [1024, 1, 1023, 517, 0, 64, 800, 33]),
+            ("d=80 f32", 4, 1000, 16, 4, 80, "float32", [1000, 0, 999, 2])]
 
 
 # (rtol, atol) of |err| <= atol + rtol |plain|. bf16: rtol 2^-7 is one or
@@ -964,7 +1321,8 @@ def phase_decode_attention():
         if not sees_off_by_one:
             raise AssertionError(f"the tolerance at {name} does not tell the "
                                  "plain version from itself one row short")
-        rows.append(dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, max_ulps=ulps,
                          bound_ms=bound_ms, bound_by=bound_by,
                          call_ms=call_ms, shape=dict(
                              B=B, S=S, Hq=Hq, Hkv=Hkv, d=d, dtype=dtype,
@@ -979,7 +1337,9 @@ def phase_decode_attention():
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
             "call_ms": top["call_ms"], "shape": top["shape"],
-            "d112": rows[-1]}  # Zamba2-7B's serving shape
+            # Zamba2-7B's serving shape and hubert-xlarge's width
+            "d112": next(r for r in rows if r["name"] == "d=112 g=1"),
+            "d80": next(r for r in rows if r["name"] == "d=80 hubert")}
 
 
 SERVE = dict(batch=8, prompt_len=960, gen_len=64)
@@ -1315,12 +1675,13 @@ def main():
     card = phase_versions()
     phase_build()
     entry = phase_sparse_agg()
-    entry["launches"] = phase_main_path(card)
+    perturb = phase_block_perturb()
+    entry["launches"], cnn_b3 = phase_main_path(card)
     phase_profile(card)
     phase_small_reference()
     flash = phase_flash_attention()
-    (llama_flash, _), params, cfg = phase_lm_main_path(card)
-    phase_lm_profile(card, params, cfg)
+    (llama_flash, _, llama_b3), params, cfg = phase_lm_main_path(card)
+    phase_lm_profile(card, params, cfg, exact_raises=True)
     del params
     phase_small_lm_reference()
     torch.cuda.empty_cache()  # the training phases' trees are gone
@@ -1330,8 +1691,8 @@ def main():
     phase_small_serve_reference()
     torch.cuda.empty_cache()
     scan = phase_ssd_scan()
-    (hybrid_flash, scan["launches"]), params, cfg = phase_lm_main_path(
-        card, "zamba2-7b", steps=6, expect=(61, 242))
+    (hybrid_flash, scan["launches"], hybrid_b3), params, cfg = \
+        phase_lm_main_path(card, "zamba2-7b", steps=6, expect=(61, 242, 0))
     phase_lm_profile(card, params, cfg, stages=(0, 5))
     del params
     phase_small_lm_reference("zamba2-7b")
@@ -1346,7 +1707,11 @@ def main():
     decode["launches"] = llama_decode + hybrid_decode
     decode["launches_by_path"] = {"llama3-8b serve": llama_decode,
                                   "zamba2-7b serve": hybrid_decode}
-    print(json.dumps({"kernels": [entry, flash, decode, scan]}))
+    perturb["launches_by_path"] = {"resnet18 sync": cnn_b3,
+                                   "llama3-8b train": llama_b3,
+                                   "zamba2-7b train": hybrid_b3}
+    perturb["launches"] = cnn_b3 + llama_b3 + hybrid_b3
+    print(json.dumps({"kernels": [entry, flash, decode, scan, perturb]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

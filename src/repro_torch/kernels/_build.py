@@ -19,7 +19,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("sparse_agg", "flash_attention", "decode_attention", "ssm_scan")
+KERNELS = ("sparse_agg", "flash_attention", "decode_attention", "ssm_scan",
+           "block_perturb")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

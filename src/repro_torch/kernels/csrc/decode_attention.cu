@@ -25,7 +25,8 @@
 //    at a time, kUnroll rows per step with every load issued before any is
 //    used, and keeps its own online softmax (m, l, acc) in registers. At
 //    D = 112 (Zamba2-7B) a row is 14 vectors in bf16 and 28 in f32, so a
-//    group is 16 or 32 lanes with 2 or 4 idle: they load nothing, add 0 to
+//    group is 16 or 32 lanes with 2 or 4 idle; at D = 80 (hubert-xlarge)
+//    10 and 20 vectors, 6 or 12 lanes idle. Idle lanes load nothing, add 0 to
 //    the group's butterfly sum and store nothing, so the xor shuffles stay
 //    inside an aligned power-of-two group. At the end the block merges
 //    its lane groups through shared memory and writes one partial (m, l,
@@ -338,6 +339,7 @@ int launch_dim(int D, int gc, const void* q, const void* k, const void* v,
     case 16: return launch_group<T, 16>(gc, q, k, v, length, o, ws_m, ws_l, ws_acc, B, S, Hq, Hkv, n_chunks, chunk_rows, splits, scale, stream);
     case 32: return launch_group<T, 32>(gc, q, k, v, length, o, ws_m, ws_l, ws_acc, B, S, Hq, Hkv, n_chunks, chunk_rows, splits, scale, stream);
     case 64: return launch_group<T, 64>(gc, q, k, v, length, o, ws_m, ws_l, ws_acc, B, S, Hq, Hkv, n_chunks, chunk_rows, splits, scale, stream);
+    case 80: return launch_group<T, 80>(gc, q, k, v, length, o, ws_m, ws_l, ws_acc, B, S, Hq, Hkv, n_chunks, chunk_rows, splits, scale, stream);
     case 112: return launch_group<T, 112>(gc, q, k, v, length, o, ws_m, ws_l, ws_acc, B, S, Hq, Hkv, n_chunks, chunk_rows, splits, scale, stream);
     case 128: return launch_group<T, 128>(gc, q, k, v, length, o, ws_m, ws_l, ws_acc, B, S, Hq, Hkv, n_chunks, chunk_rows, splits, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -20,25 +20,31 @@
 // columns, unstored rows), with no padded copy.
 //
 //  * bf16: four warps, 16 query rows each. q k^T and p v run on the tensor
-//    cores with mma.sync m16n8k16 (bf16 in, f32 accumulate); p is rounded
-//    to bf16 for the second product, the one rounding the Pallas kernel
-//    (which computes p v in f32) does not make. 64-row kv tiles.
+//    cores with mma.sync m16n8k16 (bf16 in, f32 accumulate). The Pallas
+//    kernel computes p v in f32; here p is split into two bf16 terms, hi =
+//    bf16(p) and lo = bf16(p - hi), and p v is two products, so p keeps
+//    about 16 bits and the output stays within one bf16 rounding of the
+//    f32 plain version. 64-row kv tiles.
 //  * f32: true f32 on the CUDA cores (TF32 stays off, as in the rest of
 //    the port). Two threads per query row, each holding half the head dim
 //    of q and of the accumulator; 32-row kv tiles.
 //
-// Head dims 16, 32, 64, 112 (Zamba2-7B's shared attention) and 128. Each is
-// a multiple of 16, so the bf16 path's D / 16 k-steps and D / 8 accumulator
-// tiles are whole; nothing assumes a power of two (the tile loaders divide
-// by D / 8 or D / 4 16-byte vectors a row, and 112 bf16 or f32 values are
-// a whole number of 16-byte vectors, so every row stays 16-byte aligned).
+// Head dims 16, 32, 64, 80 (hubert-xlarge), 112 (Zamba2-7B's shared
+// attention) and 128. Each is a multiple of 16, so the bf16 path's D / 16
+// k-steps and D / 8 accumulator tiles are whole (d 80: 5 and 10); nothing
+// assumes a power of two (the tile loaders divide by D / 8 or D / 4 16-byte
+// vectors a row, and 80 or 112 bf16 or f32 values are a whole number of
+// 16-byte vectors, so every row stays 16-byte aligned; the padded shared
+// row of D + 8 bf16 values keeps the fragment reads free of bank conflicts
+// at both).
 //
 // Bound. Causal attention needs 4 * B * Hq * D * S (S + 1) / 2 flops and
 // moves q, k, v and o once: at the Llama-3-8B training shape (B 4, S 1024,
 // Hq 32, Hkv 8, D 128, bf16) that is 34.4 GFLOP against 84 MB, so the
 // tensor cores bound it (0.035 ms at 989 TFLOP/s). This first kernel
 // uses mma.sync with plain shared-memory staging (no TMA, no wgmma, no
-// pipelining), so it runs well below that bound; PERF.md has its times.
+// pipelining), and its split p v issues half again the products the
+// function needs, so it runs well below that bound; PERF.md has its times.
 
 #include <cstdint>
 
@@ -57,6 +63,16 @@ constexpr unsigned kFull = 0xffffffffu;
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (x, y) as two packed bf16 pairs: hi = bf16(x, y) and lo = bf16 of what
+// hi misses (exact in f32), so hi + lo carries about 16 bits of each
+__device__ __forceinline__ void pack_split(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  const float2 hf = __bfloat1622float2(h);
+  lo = pack_f32(x - hf.x, y - hf.y);
 }
 
 __device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
@@ -216,11 +232,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(
 
 #pragma unroll
     for (int kk = 0; kk < kTileBf16 / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_f32(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_f32(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      uint32_t pa[4], pl[4];
+      pack_split(s[2 * kk][0], s[2 * kk][1], pa[0], pl[0]);
+      pack_split(s[2 * kk][2], s[2 * kk][3], pa[1], pl[1]);
+      pack_split(s[2 * kk + 1][0], s[2 * kk + 1][1], pa[2], pl[2]);
+      pack_split(s[2 * kk + 1][2], s[2 * kk + 1][3], pa[3], pl[3]);
 #pragma unroll
       for (int i = 0; i < D / 8; ++i) {
         const __nv_bfloat16* vp = vs + (kk * 16 + 2 * tig) * kStride + i * 8 + gid;
@@ -228,6 +244,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(
         bf[0] = pack_raw(vp[0], vp[kStride]);
         bf[1] = pack_raw(vp[8 * kStride], vp[9 * kStride]);
         mma_16816(acc[i], pa, bf);
+        mma_16816(acc[i], pl, bf);
       }
     }
   }
@@ -383,6 +400,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 16: launch<16>(q, k, v, o, B, S, Hq, Hkv, scale, causal, is_bf16, st); break;
     case 32: launch<32>(q, k, v, o, B, S, Hq, Hkv, scale, causal, is_bf16, st); break;
     case 64: launch<64>(q, k, v, o, B, S, Hq, Hkv, scale, causal, is_bf16, st); break;
+    case 80: launch<80>(q, k, v, o, B, S, Hq, Hkv, scale, causal, is_bf16, st); break;
     case 112: launch<112>(q, k, v, o, B, S, Hq, Hkv, scale, causal, is_bf16, st); break;
     case 128: launch<128>(q, k, v, o, B, S, Hq, Hkv, scale, causal, is_bf16, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);

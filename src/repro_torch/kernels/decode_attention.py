@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 112, 128)
+HEAD_DIMS = (16, 32, 64, 80, 112, 128)
 MAX_GROUP = 8        # q heads one block serves (csrc: kMaxGroup)
 SPLIT_ALIGN = 64     # a split's rows are a multiple of this
 BLOCKS_PER_SM = 4    # aim: this many split blocks for every SM

@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 112, 128)
+HEAD_DIMS = (16, 32, 64, 80, 112, 128)
 launches = 0
 _fn = None
 

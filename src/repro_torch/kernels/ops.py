@@ -13,10 +13,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import block_perturb
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref, sparse_agg
 from repro_torch.kernels import ssm_scan
+from repro_torch.models.module import tree_leaves
 
 
 def sparse_cohort_add(idx: torch.Tensor, vals: torch.Tensor,
@@ -105,3 +107,22 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, log_a: torch.Tensor,
     ``chunk`` is the backward's chunk length (S % chunk == 0). The forward
     is the same function for any chunk."""
     return _SSDScan.apply(x, dt, log_a, Bm, Cm, chunk)
+
+
+def diff_sqnorm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``sum((a - b)^2)`` as a 0-dim float64 tensor on a's device: the
+    difference of the f32-widened operands in f32, its square and sum in
+    f64 (``kernels/block_perturb.py``; the pace controller's Eq. 2 norms).
+    It does not wait for the card."""
+    if a.device.type == "cpu":
+        return ref.diff_sqnorm_ref(a, b)
+    return block_perturb.diff_sqnorm_f64(a, b)
+
+
+def update_sqnorm(tree_new, tree_old) -> torch.Tensor:
+    """The on-device half of the pace controller, ``||new - old||^2`` over
+    every leaf, as the reference's f32 scalar: each leaf's f64 sum by
+    ``diff_sqnorm``, added in f64 in leaf order, rounded once."""
+    parts = [diff_sqnorm(x, y)
+             for x, y in zip(tree_leaves(tree_new), tree_leaves(tree_old))]
+    return torch.stack(parts).sum().float()

@@ -17,6 +17,16 @@ def sparse_cohort_add_ref(idx: torch.Tensor, vals: torch.Tensor,
                        ).index_add_(0, idx.reshape(-1).long(), contrib)
 
 
+def diff_sqnorm_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``sum((a - b)^2)`` over the flattened operands as a 0-dim float64
+    tensor: each operand widened to f32 and the difference taken in f32,
+    as the reference's ``diff_sqnorm_ref`` and numpy's ``flat - prev`` do;
+    the square and the sum in f64, as the reference's numpy observe
+    (``np.square(v, dtype=np.float64)``)."""
+    d = (a.reshape(-1).float() - b.reshape(-1).float()).double()
+    return torch.sum(d * d)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, scale=None) -> torch.Tensor:
     """Softmax attention, q [B, S, Hq, d], k/v [B, S, Hkv, d]: kv heads

@@ -15,9 +15,18 @@ family's shared attention is GQA too). Checkpoints (``ckpt_dir``,
 ``resume``; ROADMAP A11) and the client mesh (``mesh_clients > 1``;
 ROADMAP A14) are not ported and raise ``TypeError``.
 
+On the card the pace controller keeps its window there and takes its
+Eq. 2 norms with the block-perturbation kernel
+(``kernels/csrc/block_perturb.cu``). The default exact window holds Q+1 =
+6 f32 copies of the active block: for full-width Llama-3-8B (a 1.745 B
+element block, 42 GB) that does not fit beside a round's transients, and
+the first observe raises and asks for ``low_memory=True``, the anchored
+window's two copies, which only ``pace_kwargs`` reaches.
+
 Examples (one H100, full width):
-  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
-      --full --steps 8 --batch 4 --seq 1024 --use-pallas
+  PYTHONPATH=src python -c "from repro_torch.launch.train import train; \\
+      train('llama3-8b', reduced=False, steps=8, batch=4, seq=1024, \\
+            use_pallas=True, pace_kwargs=dict(low_memory=True))"
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
       --full --steps 6 --batch 4 --seq 1024 --use-pallas
 """

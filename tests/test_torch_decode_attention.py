@@ -43,7 +43,8 @@ CASES = [(2, 64, 4, 4, 16, (64, 0)),
          (3, 100, 8, 2, 32, (1, 57, 100)),
          (2, 40, 4, 1, 16, (0, 0)),
          (4, 130, 16, 4, 64, (130, 65, 0, 7)),
-         (2, 50, 4, 4, 112, (50, 17))]  # Zamba2-7B's head dim
+         (2, 50, 4, 4, 112, (50, 17)),  # Zamba2-7B's head dim
+         (2, 70, 4, 2, 80, (70, 33))]   # hubert-xlarge's
 
 
 def _inputs(B, S, Hq, Hkv, d, lengths, seed=0):
@@ -194,7 +195,9 @@ def _kernel_vs_plain(arrays, dtype, device):
     (2, 200, 32, 2, 32, (200, 1)),         # g = 16: two head chunks
     (1, 4096, 32, 8, 128, (4096,)),
     (8, 256, 32, 32, 112, (256, 1, 255, 128, 0, 64, 200, 17)),  # Zamba2
-    (2, 300, 32, 8, 112, (300, 129))])
+    (2, 300, 32, 8, 112, (300, 129)),
+    (4, 1024, 16, 16, 80, (1024, 1, 517, 0)),  # hubert-xlarge
+    (2, 300, 16, 4, 80, (300, 129))])
 def test_kernel_matches_plain_version(cuda_device, case, dtype):
     _kernel_vs_plain(_inputs(*case), dtype, cuda_device)
 

@@ -14,9 +14,13 @@ Tolerances:
     are the same bf16 values and every version computes in f32 inside, so
     the outputs differ only where the f32 results round to different bf16
     neighbours.
-  * On the card the kernel rounds p to bf16 before p v on the tensor cores,
-    an extra rounding of relative size 2^-9 per weight: bf16 cases are held
-    at the same two ulps; f32 cases at rtol 1e-5, atol 1e-5.
+  * On the card the kernel is held against the plain version as
+    ``chip_smoke.py`` holds it: |err| <= 1e-5 + 2^-7 |plain| in bf16 (it
+    carries p as two bf16 terms on the tensor cores, so both versions
+    compute in f32 before both round once to bf16: one or two ulps of the
+    output's own magnitude; 1e-5 covers outputs near zero, where the
+    tensor cores' f32 sums of q k^T leave about 1e-6), rtol 1e-5, atol
+    1e-5 in f32.
 
 The JAX package is imported inside the parity tests only, so that the
 kernel test collects on a machine with the card and without JAX:
@@ -30,11 +34,13 @@ from repro_torch.kernels import ops, ref
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=1.6e-2, atol=1.6e-2)
+KERNEL_BF16_TOL = dict(rtol=2 ** -7, atol=1e-5)
 
 # (B, S, Hq, Hkv, d): g in {1, 2, 4}, ragged S (not a multiple of the
-# reference's blocks), d = 16 (the reduced LM), 32 and 112 (Zamba2-7B)
+# reference's blocks), d = 16 (the reduced LM), 32, 112 (Zamba2-7B) and 80
+# (hubert-xlarge)
 CASES = [(1, 64, 4, 4, 16), (2, 40, 4, 1, 16), (1, 100, 8, 2, 32),
-         (2, 128, 4, 2, 16), (1, 72, 4, 2, 112)]
+         (2, 128, 4, 2, 16), (1, 72, 4, 2, 112), (2, 56, 4, 4, 80)]
 
 
 def _inputs(B, S, Hq, Hkv, d, seed=0):
@@ -139,7 +145,9 @@ def cuda_device():
 @pytest.mark.parametrize("case", CASES + [(2, 1000, 32, 8, 128),
                                           (1, 257, 8, 8, 64),
                                           (2, 1024, 32, 32, 112),
-                                          (1, 1000, 32, 8, 112)])
+                                          (1, 1000, 32, 8, 112),
+                                          (4, 1024, 16, 16, 80),
+                                          (1, 300, 16, 4, 80)])
 def test_kernel_matches_plain_version(cuda_device, case, causal, dtype):
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
     q, k, v = _torch(_inputs(*case), tdt, cuda_device)
@@ -149,8 +157,9 @@ def test_kernel_matches_plain_version(cuda_device, case, causal, dtype):
     assert fa.launches == before + 1
     want = ref.flash_attention_ref(q, k, v, causal=causal)
     assert got.dtype == tdt and got.shape == want.shape
-    torch.testing.assert_close(got.float(), want.float(),
-                               **(F32_TOL if dtype == "float32" else BF16_TOL))
+    torch.testing.assert_close(
+        got.float(), want.float(),
+        **(F32_TOL if dtype == "float32" else KERNEL_BF16_TOL))
 
 
 @pytest.mark.cuda

@@ -155,7 +155,7 @@ def test_unported_policies_and_run_arguments_raise():
 
 def test_port_imports_without_jax_or_reference():
     """Every module of the port imports with JAX and the JAX package
-    blocked, the LM, serving and hybrid slices' modules among them, and
+    blocked, the LM, serving, hybrid and B3 slices' modules among them, and
     registering the ported configs pulls in nothing of either;
     chip_smoke.py imports neither."""
     code = ("import sys\n"
@@ -171,7 +171,8 @@ def test_port_imports_without_jax_or_reference():
             "'repro_torch.core.freezing', 'repro_torch.kernels.flash_attention', "
             "'repro_torch.launch.train', 'repro_torch.kernels.decode_attention', "
             "'repro_torch.launch.serve', 'repro_torch.configs.zamba2_7b', "
-            "'repro_torch.models.ssm', 'repro_torch.kernels.ssm_scan'):\n"
+            "'repro_torch.models.ssm', 'repro_torch.kernels.ssm_scan', "
+            "'repro_torch.kernels.block_perturb', 'repro_torch.core.pace'):\n"
             "    assert n in names, n\n"
             "from repro_torch import configs\n"
             "assert configs.names() == ['deepseek-coder-33b', 'llama3-8b', "
