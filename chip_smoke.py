@@ -66,7 +66,27 @@ Phases, each of which exits non-zero on failure:
      steps), counts set to 0 before and read after; then time and profile
      one decode step;
  20. check the card's hybrid serving against the port's CPU path on a
-     small model.
+     small model;
+ 21. hold the dequantizing GEMM (B2) against its plain version at the
+     quant-aware path's shape (M 32, K 16,384, N 512, int8 q with row
+     scales) and its variants (bf16 w, K 32,768, M 4,096, col, full and
+     0-d scales, f32 and bf16 q, ragged shapes, zero rows, denormal
+     scales, near-overflow magnitudes, bf16 out, a bad scale shape) by the
+     f32 summation bound, which a plain version missing the last split-K
+     slice must break; equal bits on a rerun; its times;
+ 22. drive the memory tiers: ``SmartFreezeServer.run`` on full-width
+     ResNet-18 with ``cache_tiers="all"`` and ``compute_dtype="bfloat16"``
+     (10 clients over CIFAR-10's 50,000 samples, the high-contention memory
+     pool, schedule [1, 1, 1, 1]), counts set to 0 before and read after;
+     the ladder's plan per stage and every tier group on the card
+     asserted; then profile a stage-2 round with one client per tier;
+ 23. drive the quant-aware int8 path, which launches B2:
+     ``RoundEngine.run_round`` at ResNet-18's stage 3 over the fleet, the
+     flattened prefix features int8 with row scales, the reference test's
+     MLP consumer at w1 [16,384, 512]; one round in f32, one in bf16, one
+     B2 launch per local step; a profiled round;
+ 24. check the card's tiered bf16 run and a quant-aware int8 round against
+     the port's CPU path on a small model.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -516,6 +536,8 @@ def _kernel_class(name):
         return "ssd_scan (B5)"
     if "diff_sqnorm" in low:
         return "diff_sqnorm (B3)"
+    if "dequant_matmul" in low or "splitk_reduce" in low:
+        return "dequant_matmul (B2)"
     if "softmax" in low:
         return "softmax"
     if "nvjet" in low or "cublas" in low or "cutlass" in low:
@@ -1670,6 +1692,636 @@ def phase_ssd_scan():
             "call_ms": top["call_ms"], "shape": top["shape"]}
 
 
+# (name, M, K, N, q, scale, w dtype, out dtype): the first is the quant-aware
+# path's shape (batch 32 of ResNet-18's stage-3 prefix, 8 x 8 x 256, into
+# its final width 512); q "int8" is quantize_int8 of normal data
+B2_CASES = [("main", 32, 16384, 512, "int8", "row", "float32", "float32"),
+            ("bf16 w", 32, 16384, 512, "int8", "row", "bfloat16", "float32"),
+            ("K 32768", 32, 32768, 512, "int8", "row", "float32", "float32"),
+            ("M 4096", 4096, 16384, 512, "int8", "row", "float32", "float32"),
+            ("col scale", 32, 16384, 512, "int8", "col", "float32",
+             "float32"),
+            ("full scale", 32, 16384, 512, "int8", "full", "float32",
+             "float32"),
+            ("0-d scale", 32, 16384, 512, "int8", "scalar", "float32",
+             "float32"),
+            ("f32 q", 32, 16384, 512, "float32", "row", "float32", "float32"),
+            ("bf16 q", 32, 16384, 512, "bfloat16", "row", "float32",
+             "float32"),
+            ("1x1x1", 1, 1, 1, "int8", "row", "float32", "float32"),
+            ("5x3x2", 5, 3, 2, "int8", "row", "float32", "float32"),
+            ("257x129x65", 257, 129, 65, "int8", "row", "float32", "float32"),
+            ("zero rows", 32, 16384, 512, "zero rows", "row", "float32",
+             "float32"),
+            ("denormal s", 32, 16384, 512, "denormal", "row", "float32",
+             "float32"),
+            ("near overflow", 32, 16384, 512, "overflow", "row", "float32",
+             "float32"),
+            ("bf16 out", 32, 16384, 512, "int8", "row", "float32",
+             "bfloat16")]
+
+
+def _b2_bound(q, s, w):
+    """Per output, the f32 summation bound for two orders of the same
+    products, ``2 K 2^-24 (|q s| @ |w|)``, plus ``K 2^-149``: gradual
+    underflow's absolute rounding, for denormal products. In f64."""
+    K = q.shape[1]
+    mag = (q.double() * s.double()).abs() @ w.double().abs()
+    return 2 * K * 2.0 ** -24 * mag + K * 2.0 ** -149
+
+
+def _b2_inputs(M, K, N, qkind, skind, wdt, gen, dev):
+    import torch
+    from repro_torch.fl.quant import quantize_int8
+    x = torch.randn(M, K, generator=gen, device=dev)
+    if qkind == "zero rows":
+        x[3] = 0
+        x[11] = 0
+    q, s = quantize_int8(x)
+    w = torch.randn(K, N, generator=gen, device=dev) / K ** 0.5
+    if qkind == "denormal":
+        s = torch.full_like(s, 1e-40)
+    elif qkind == "overflow":
+        # |q s| up to 1.27e38 against |w| < 1 / K: sums stay finite
+        s = torch.full_like(s, 1e36)
+        w = (torch.rand(K, N, generator=gen, device=dev) * 2 - 1) / K
+    elif qkind in ("float32", "bfloat16"):
+        q = x.to(getattr(torch, qkind))
+    if skind == "col":
+        s = torch.rand(K, generator=gen, device=dev) * 0.05 + 0.001
+    elif skind == "full":
+        s = torch.rand(M, K, generator=gen, device=dev) * 0.05 + 0.001
+    elif skind == "scalar":
+        s = torch.tensor(0.02, device=dev)
+    return q, s, w.to(getattr(torch, wdt))
+
+
+def phase_dequant_matmul():
+    """Kernel B2 against its plain version on the card at the quant-aware
+    path's shape and its variants. Tolerance, per output: the f32
+    summation bound ``_b2_bound`` (plus one bf16 ulp of the plain value for
+    bf16 out); a plain version missing the kernel's last split-K slice
+    must break it, and a rerun must give equal bits. Times (cold in L2:
+    the inputs cycle through copies of w, 100 MB or more in all, as the
+    round finds w1 after its other work) the kernel, the plain version and
+    the one-call yardstick ``torch.matmul(q.float() * s, w.float())`` with
+    TF32 off. Bound: q, scale and w read once and out written once over
+    3.35 TB/s, against 2 M N K + M K f32 operations at 67 TFLOP/s."""
+    import torch
+    from repro_torch.kernels import dequant_matmul as dqmm
+    from repro_torch.kernels import ref
+    assert not torch.backends.cuda.matmul.allow_tf32
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, worst = {}, 0.0
+    for name, M, K, N, qkind, skind, wdt, odt in B2_CASES:
+        q, s, w = _b2_inputs(M, K, N, qkind, skind, wdt, gen, dev)
+        out_dtype = getattr(torch, odt)
+        got = dqmm.dequant_matmul(q, s, w, out_dtype)
+        again = dqmm.dequant_matmul(q, s, w, out_dtype)
+        want = ref.dequant_matmul_ref(q, s, w, out_dtype)
+        _, s2 = ref.normalize_scale(s, M, K)
+        bound = _b2_bound(q, s2, w)
+        if out_dtype == torch.bfloat16:
+            e = torch.floor(torch.log2(want.double().abs().clamp_min(
+                2.0 ** -126)))
+            bound = bound + torch.pow(2.0, e - 7)
+        err = (got.double() - want.double()).abs()
+        ok = bool((err <= bound).all()) and bool(torch.isfinite(got).all())
+        splits, per = dqmm.plan(M, N, K, sms)
+        cut = (splits - 1) * per
+        short = ref.dequant_matmul_ref(q[:, :cut], s2[:, :cut]
+                                       if s2.shape[1] == K else s2,
+                                       w[:cut], out_dtype)
+        sees_cut = bool(((got.double() - short.double()).abs()
+                         > bound).any())
+        max_err = float(err.max())
+        worst = max(worst, max_err)
+        line = (f"dequant_matmul {name:>13} M={M} K={K} N={N} q={q.dtype} "
+                f"scale={skind} w={w.dtype} out={odt} splits={splits}x{per} "
+                f"max_abs_err={max_err:.3e} max_err_over_bound="
+                f"{float((err / bound).max()):.3e} sees_missing_slice="
+                f"{sees_cut}")
+        if qkind == "zero rows":
+            ok = ok and bool((got[[3, 11]] == 0).all())
+        timed = name in ("main", "bf16 w", "K 32768", "M 4096")
+        if timed:
+            copies = [w] + [w.clone() for _ in range(max(
+                1, -(-2 * L2_BYTES // (w.numel() * w.element_size()))))]
+            ms = _time_cold_ms([lambda c=c: dqmm.dequant_matmul(q, s, c)
+                                for c in copies], reps=24)
+            warm_ms = _time_ms(lambda: dqmm.dequant_matmul(q, s, w))
+            plain_ms = _time_cold_ms([lambda c=c: ref.dequant_matmul_ref(
+                q, s, c) for c in copies], reps=24)
+            library_ms = _time_cold_ms([lambda c=c: torch.matmul(
+                q.float() * s2, c.float()) for c in copies], reps=24)
+            call_ms = _call_ms(lambda: dqmm.dequant_matmul(q, s, w))
+            nbytes = (q.numel() * q.element_size() + s.numel() * 4
+                      + w.numel() * w.element_size() + M * N * 4)
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = (2 * M * N * K + M * K) / F32_FLOPS
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            line += (f" ms={ms:.4f} warm_ms={warm_ms:.4f} plain_ms="
+                     f"{plain_ms:.4f} library_ms={library_ms:.4f} bound_ms="
+                     f"{bound_ms:.4f} ({bound_by}) bound_share="
+                     f"{bound_ms / ms:.3f} call_ms={call_ms:.4f}")
+            rows[name] = dict(ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
+                              library_ms=library_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, call_ms=call_ms,
+                              shape=dict(M=M, K=K, N=N, q=str(q.dtype),
+                                         w=str(w.dtype)))
+            del copies
+        print(line)
+        if not torch.equal(got, again):
+            raise AssertionError(f"dequant_matmul at {name}: two runs differ")
+        if not ok:
+            raise AssertionError(f"dequant_matmul breaks its bound at {name}:"
+                                 f" max_abs_err {max_err}")
+        if not sees_cut:
+            raise AssertionError(f"the bound at {name} does not tell the plain"
+                                 " version from one missing its last slice")
+        del q, s, w, got, again, want, bound, err, short
+        torch.cuda.empty_cache()
+    q = torch.zeros(4, 8, dtype=torch.int8, device=dev)
+    try:
+        dqmm.dequant_matmul(q, torch.ones(3, 5, device=dev),
+                            torch.ones(8, 2, device=dev))
+    except ValueError as e:
+        print(f"dequant_matmul bad scale shape raises: {e}")
+    else:
+        raise AssertionError("a [3, 5] scale for q [4, 8] did not raise")
+    top = rows["main"]
+    return {"name": "dequant_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/dequant_matmul.cu",
+            "replaces": "src/repro/kernels/dequant_matmul.py:99",
+            "launches": None, "max_abs_err": worst, "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            "warm_ms": top["warm_ms"], "call_ms": top["call_ms"],
+            "shape": top["shape"], "bf16_w": rows["bf16 w"],
+            "K_32768": rows["K 32768"], "M_4096": rows["M 4096"]}
+
+
+TIERED_PLAN = {1: {"f32": 6, "int8": 3, None: 1},
+               2: {"f32": 6, "fp16": 3, "int8": 1},
+               3: {"f32": 8, "fp16": 2}}
+
+
+def _tiered_fleet():
+    """CIFAR-10's own 50,000 training samples (SyntheticVision, 32 x 32 x 3,
+    10 classes) over 10 clients, Dirichlet alpha 1.0, the paper's
+    high-contention memory pool (0.5-2 GiB)."""
+    from repro_torch.data.partition import dirichlet_partition
+    from repro_torch.data.synthetic import SyntheticVision
+    from repro_torch.fl.client import make_client_fleet
+    sv = SyntheticVision(num_classes=10, image_size=32, seed=0)
+    train = sv.sample(50_000, seed=1)
+    parts = dirichlet_partition(train["y"], 10, alpha=1.0, seed=0)
+    return (make_client_fleet(train, parts, scenario="high", seed=0),
+            sv.sample(1000, seed=2))
+
+
+class _group_log:
+    """Records every fused group a RoundEngine runs inside the ``with``:
+    (tier, client count, the dtype and device of the batch's ``x``, the
+    device of the group's aggregate)."""
+
+    def __enter__(self):
+        from repro_torch.fl import engine
+        self.cls = engine.RoundEngine
+        self.run_fused = run_fused = self.cls._run_fused
+        self.batches = batches = self.cls._client_batches
+        log, seen = [], {}
+
+        def client_batches(eng, client, plan, tier):
+            out = batches(eng, client, plan, tier)
+            seen[tier] = (out["x"].dtype, out["x"].device,
+                          "x_scale" in out)
+            return out
+
+        def logged(eng, clients, cids, params, state, round_idx, *, tier):
+            out = run_fused(eng, clients, cids, params, state, round_idx,
+                            tier=tier)
+            from repro_torch.models.module import tree_leaves
+            log.append(dict(tier=tier, n=len(cids), x=seen[tier],
+                            agg_device=tree_leaves(out[0])[0].device.type))
+            return out
+        self.cls._client_batches = client_batches
+        self.cls._run_fused = logged
+        return log
+
+    def __exit__(self, *exc):
+        self.cls._run_fused = self.run_fused
+        self.cls._client_batches = self.batches
+
+
+def phase_tiered_path(card):
+    """The memory tiers on the card: ``SmartFreezeServer.run`` on
+    full-width ResNet-18 with ``cache_tiers="all"`` (f32 -> fp16 -> int8)
+    and ``compute_dtype="bfloat16"``, 10 clients a round (the whole fleet),
+    batch 32, top-k uplinks at ratio 0.1, ``schedule=[1, 1, 1, 1]``. Every
+    kernel's launch count is set to 0 just before and read just after.
+    Asserts the ladder's plan per stage and that every tier group ran on
+    the card with its stored dtype."""
+    import torch
+    from collections import Counter
+    from repro_torch.core import freezing_cnn as fz
+    from repro_torch.fl.server import SmartFreezeServer
+    from repro_torch.kernels import block_perturb, dequant_matmul, sparse_agg
+    from repro_torch.models.cnn import CNN, RESNET18
+    from repro_torch.models.module import tree_leaves
+    dev = torch.device("cuda")
+    clients, test = _tiered_fleet()
+    model = CNN(RESNET18, device="cuda")
+    params, state = model.init(torch.Generator().manual_seed(0))
+    srv = SmartFreezeServer(model, clients, clients_per_round=10,
+                            batch_size=32, local_epochs=1,
+                            compress_ratio=RATIO, seed=0, cache_tiers="all",
+                            compute_dtype="bfloat16", device="cuda")
+    for stage, want in TIERED_PLAN.items():
+        got = dict(Counter(srv._cache_plan(stage).values()))
+        print(f"tiered plan stage {stage}: {got}")
+        assert got == want, (stage, got, want)
+    tx = torch.as_tensor(test["x"], device=dev)
+    ty = torch.as_tensor(test["y"], device=dev).long()
+    marks, engines, fills = [], [], []
+    stage_engine = srv._stage_engine
+
+    def keep_engine(stage, frozen, bn_state):
+        eng = stage_engine(stage, frozen, bn_state)
+        features_for = eng.features_for
+
+        def timed_fill(client, tier="f32"):
+            if client.client_id in eng._features:
+                return features_for(client, tier)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = features_for(client, tier)
+            torch.cuda.synchronize()
+            fills.append((stage, (time.perf_counter() - t0) * 1e3))
+            return out
+        eng.features_for = timed_fill
+        engines.append((stage, eng))
+        return eng
+    srv._stage_engine = keep_engine
+
+    def eval_fn(p, s, stage):
+        torch.cuda.synchronize()
+        t_in = time.perf_counter()
+        with torch.no_grad():
+            logits = model.apply(p, s, tx, train=False)[0]
+            acc = float((logits.argmax(-1) == ty).float().mean())
+        torch.cuda.synchronize()
+        marks.append((t_in, time.perf_counter()))
+        return acc
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with _group_log() as groups:
+        sparse_agg.launches = block_perturb.launches = 0
+        dequant_matmul.launches = 0
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        out = srv.run(params, state, eval_fn=eval_fn, eval_every=1,
+                      schedule=[1, 1, 1, 1])
+        torch.cuda.synchronize()
+        b1, b3, b2 = (sparse_agg.launches, block_perturb.launches,
+                      dequant_matmul.launches)
+    total_s = time.perf_counter() - t_start
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    prev_end = t_start
+    for rr, (t_in, t_out) in zip(hist, marks):
+        wall_ms = (t_in - prev_end) * 1e3
+        prev_end = t_out
+        fill_ms = sum(ms for st, ms in fills if st == rr.stage)
+        eng = dict(engines)[rr.stage]
+        by_tier = {}
+        for cid, tier in eng.cache_tiers().items():
+            by_tier[tier] = by_tier.get(tier, 0) + eng._features[cid].nbytes
+        share = {t: round(b / max(rr.cache_bytes, 1), 4)
+                 for t, b in by_tier.items()}
+        print(f"tiered round {rr.round_idx} stage {rr.stage} loss "
+              f"{rr.loss:.4f} wall_ms {wall_ms:.1f} (cache fill "
+              f"{fill_ms:.1f}) cache_bytes {rr.cache_bytes} by tier "
+              f"{by_tier} share {share} uplink_bytes {rr.uplink_bytes} "
+              f"test_acc {rr.test_acc:.3f}")
+    print(f"tiered groups run: {[(g['tier'], g['n'], str(g['x'][0]), g['x'][1].type, g['agg_device']) for g in groups]}")
+    print(f"tiered path seconds {total_s:.2f} (round 0 includes the Eq. 8 "
+          f"bootstrap) on {card}; torch.cuda.max_memory_allocated {peak}")
+    assert [r.stage for r in hist] == [0, 1, 2, 3]
+    assert all(math.isfinite(r.loss) for r in hist), [r.loss for r in hist]
+    leaves = tree_leaves(out["params"]) + tree_leaves(out["state"])
+    assert all(l.device.type == "cuda" and l.dtype == torch.float32
+               for l in leaves)
+    assert all(bool(torch.isfinite(l).all()) for l in leaves)
+    stored = {"f32": torch.float32, "fp16": torch.float16,
+              "int8": torch.int8, None: torch.float32}
+    i = expected_b1 = 0
+    for rr in hist:
+        plan = srv._cache_plan(rr.stage)
+        want = dict(Counter(plan.get(c) for c in rr.selected))
+        ran = groups[i:i + len(want)]
+        i += len(want)
+        assert {g["tier"]: g["n"] for g in ran} == want, (rr.stage, ran)
+        for g in ran:
+            assert g["x"][0] == stored[g["tier"]], g
+            assert g["x"][1].type == "cuda" and g["agg_device"] == "cuda", g
+            assert g["x"][2] == (g["tier"] == "int8"), g
+        _, active = fz.init_cnn_stage_active(model, out["params"], rr.stage,
+                                             torch.Generator().manual_seed(0))
+        expected_b1 += len(tree_leaves(active)) * len(want)
+    assert i == len(groups)
+    print(f"tiered path launches: sparse_cohort_add {b1} (expected "
+          f"{expected_b1}), diff_sqnorm {b3} (expected 0: one round a "
+          f"stage takes first snapshots only), dequant_matmul {b2} "
+          f"(expected 0: conv-first consumers dequantize first)")
+    assert b1 == expected_b1 and b3 == 0 and b2 == 0, (b1, b3, b2)
+    srv._stage_engine = stage_engine
+    engines.clear()
+    return b1, b3, out["params"], out["state"], srv
+
+
+PROFILE_SAMPLES = 640  # a client's shard cut to 20 steps of 32 to profile
+
+
+def phase_tiered_profile(card, params, state, srv):
+    """Where a tiered round's time goes: stage 2 (all three tiers), a
+    cohort of one client per tier, each client's shard cut to its first
+    ``PROFILE_SAMPLES`` samples (the per-step work is the full run's; the
+    profiler's cost grows with the steps), one warm-up round (cache fill),
+    one round on the host clock and one under torch.profiler."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import freezing_cnn as fz
+    plan = srv._cache_plan(2)
+    cohort = [min((c for c, t in plan.items() if t == tier),
+                  key=lambda c: srv.clients[c].num_samples)
+              for tier in ("f32", "fp16", "int8") if tier in plan.values()]
+    clients = {c: dataclasses.replace(srv.clients[c], data={
+        k: v[:PROFILE_SAMPLES] for k, v in srv.clients[c].data.items()})
+        for c in cohort}
+    frozen, active = fz.init_cnn_stage_active(
+        srv.model, params, 2, torch.Generator().manual_seed(2))
+    engine = srv._stage_engine(2, frozen, state)
+    use_cache = {c: plan[c] for c in cohort}
+    steps = sum(clients[c].num_samples // 32 for c in cohort)
+
+    def one_round(r):
+        engine.run_round(clients, cohort, active, state, r,
+                         use_cache=use_cache)
+        torch.cuda.synchronize()
+
+    one_round(0)
+    t0 = time.perf_counter()
+    one_round(1)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one_round(2)
+    by_class = {}
+    for row in prof.key_averages():
+        if row.device_type == torch.autograd.DeviceType.CUDA:
+            cls = _kernel_class(row.key)
+            by_class[cls] = by_class.get(cls, 0.0) + row.self_device_time_total
+    busy_ms = sum(by_class.values()) / 1e3
+    print(f"tiered profile stage 2, cohort {cohort} ({use_cache}), "
+          f"{steps} local steps in bf16: round wall_ms {wall_ms:.1f}, cache "
+          f"bytes {engine.cache_nbytes()} on {card}")
+    if not by_class:
+        print("  torch.profiler recorded no device time: not measured")
+        return
+    print(f"  device busy ms {busy_ms:.1f}, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}")
+    for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"  {cls:>20}: {us / 1e3:9.2f} ms")
+
+
+def quant_aware_consumer(params, frozen, state, batch):
+    """The reference's quant-aware consumer
+    (``tests/test_kernel_conformance.py:test_quant_aware_int8_round_pallas_parity``):
+    ``tanh(tiered_matmul(x, x_scale, w1) + b1) @ w2`` and log-softmax NLL.
+    ``h @ w2`` promotes a bf16 w2 to f32, as ``jnp`` promotes it."""
+    import torch
+    from repro_torch.fl.quant import tiered_matmul
+    h = torch.tanh(tiered_matmul(batch["x"], batch.get("x_scale"),
+                                 params["w1"]) + params["b1"])
+    logp = torch.log_softmax(h @ params["w2"].to(h.dtype), dim=-1)
+    nll = -logp.gather(1, batch["y"].long()[:, None])
+    return nll.mean(), state
+
+
+quant_aware_consumer.consumes_quantized = True
+
+
+def _quant_aware_engine(model, params, bn_state, stage, device,
+                        compute_dtype=None):
+    from repro_torch.core import freezing_cnn as fz
+    from repro_torch.fl.engine import RoundEngine
+    from repro_torch.optim import sgd
+    frozen, _ = fz.split_cnn_params(model, params, stage)
+
+    def feature_fn(x):
+        h = fz.cnn_prefix_features(model, frozen, bn_state, x, stage)
+        return h.reshape(h.shape[0], -1)
+    return RoundEngine(loss_fn=quant_aware_consumer, optimizer=sgd(0.05),
+                       cached_loss_fn=quant_aware_consumer,
+                       feature_fn=feature_fn, batch_size=32,
+                       compute_dtype=compute_dtype, device=device)
+
+
+def _consumer_params(D, H, C, device, seed=0):
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    return {"w1": torch.as_tensor((rng.randn(D, H) / np.sqrt(D)).astype(
+                np.float32), device=device),
+            "b1": torch.zeros(H, device=device),
+            "w2": torch.as_tensor((rng.randn(H, C) * 0.3).astype(
+                np.float32), device=device)}
+
+
+def phase_quant_aware(card, params, state, clients):
+    """The path that launches B2: ``RoundEngine.run_round`` at ResNet-18's
+    stage 3 over the whole fleet, every client's cache int8. The features
+    are the frozen prefix (stem and stages 0-2 of the tiered run's
+    params), flattened to [N, 8 x 8 x 256 = 16,384], so the 2-D quantizer
+    gives [N, 1] row scales; the consumer's w1 is [16,384, 512], 512 being
+    ResNet-18's final width, over 10 classes. One round in f32 and one in
+    bf16 compute (sharing the int8 cache), counts set to 0 before each
+    and read after: one B2 launch per local step. Then a round of the two
+    smallest clients on the host clock and one under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.fl.client import batch_index_plan
+    from repro_torch.kernels import dequant_matmul, sparse_agg
+    from repro_torch.models.cnn import CNN, RESNET18
+    from repro_torch.models.module import tree_leaves
+    model = CNN(RESNET18, device="cuda")
+    by_id = {c.client_id: c for c in clients}
+    cohort = sorted(by_id)
+    use_cache = {c: "int8" for c in cohort}
+    consumer = _consumer_params(16384, 512, 10, "cuda")
+    f32 = _quant_aware_engine(model, params, state, 3, "cuda")
+    bf16 = _quant_aware_engine(model, params, state, 3, "cuda", "bfloat16")
+    launches, walls = {}, {}
+    for name, eng, r in (("f32", f32, 0), ("bf16", bf16, 1)):
+        steps = sum(len(batch_index_plan(by_id[c].num_samples, 32, 1,
+                                         by_id[c].round_seed(r)))
+                    for c in cohort)
+        if name == "bf16":
+            bf16._features = f32._features  # the same int8 cache
+        torch.cuda.synchronize()
+        dequant_matmul.launches = sparse_agg.launches = 0
+        t0 = time.perf_counter()
+        p, _, losses = eng.run_round(by_id, cohort, consumer, {}, r,
+                                     use_cache=use_cache)
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+        launches[name] = dequant_matmul.launches
+        enc = eng._features[cohort[0]]
+        print(f"quant-aware {name} round: {steps} local steps, "
+              f"dequant_matmul launches {launches[name]}, wall_ms "
+              f"{walls[name]:.1f}{' (includes the cache fill)' if name == 'f32' else ''}, "
+              f"cache {eng.cache_nbytes()} B ({enc.values.dtype} "
+              f"{tuple(enc.values.shape)}, scale {tuple(enc.scale.shape)}), "
+              f"mean loss {sum(losses.values()) / len(losses):.4f} on {card}")
+        assert launches[name] == steps > 0, (name, launches[name], steps)
+        assert sparse_agg.launches == 0
+        assert all(math.isfinite(v) for v in losses.values()), losses
+        assert enc.values.dtype == torch.int8 and enc.scale.shape[1:] == (1,)
+        assert all(l.device.type == "cuda" and l.dtype == torch.float32
+                   and bool(torch.isfinite(l).all())
+                   for l in tree_leaves(p))
+    # the profiled round: the two smallest clients (the steps' work is the
+    # whole fleet's; the profiler's cost grows with the steps)
+    small = sorted(cohort, key=lambda c: by_id[c].num_samples)[:2]
+    steps = sum(by_id[c].num_samples // 32 for c in small)
+    t0 = time.perf_counter()
+    f32.run_round(by_id, small, consumer, {}, 2, use_cache=use_cache)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        f32.run_round(by_id, small, consumer, {}, 3, use_cache=use_cache)
+        torch.cuda.synchronize()
+    by_class = {}
+    for row in prof.key_averages():
+        if row.device_type == torch.autograd.DeviceType.CUDA:
+            cls = _kernel_class(row.key)
+            by_class[cls] = by_class.get(cls, 0.0) + row.self_device_time_total
+    busy_ms = sum(by_class.values()) / 1e3
+    print(f"quant-aware profile (f32, warm cache), clients {small}, {steps} "
+          f"local steps: round wall_ms {wall_ms:.1f}")
+    if by_class:
+        print(f"  device busy ms {busy_ms:.1f}, idle share "
+              f"{1 - busy_ms / wall_ms:.3f}")
+        for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
+            print(f"  {cls:>20}: {us / 1e3:9.2f} ms")
+    else:
+        print("  torch.profiler recorded no device time: not measured")
+    return launches
+
+
+def phase_small_tiered_reference():
+    """The tiers on the card against the port's CPU path (itself held
+    against the JAX package by tests/test_torch_quant.py) on a small model:
+    (1) a 2-stage tiered run in bf16, six clients, four of whose memories
+    put them on the f32, fp16, int8 and no-cache rungs of stage 1's
+    ladder, ratio 1.0; the plans must be equal, the losses within rtol 2e-2 (bf16 convs
+    sum in other orders on the two devices, and a bf16 rounding is 2^-8)
+    and the params within atol 2e-2; (2) one quant-aware int8 round on the
+    small model's flattened stage-1 features, losses and params within
+    rtol 1e-3, atol 1e-5 (f32, the kernel's sum order against the CPU's),
+    with the int8 codes of the two devices' own features at most one step
+    apart."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.convert import to_numpy, to_torch
+    from repro_torch.core.memory_model import cnn_stage_memory_bytes
+    from repro_torch.fl.server import SmartFreezeServer
+    from repro_torch.kernels import dequant_matmul
+    from repro_torch.models.cnn import CNN, CNNConfig
+    from repro_torch.models.module import tree_leaves
+    cfg = CNNConfig("small", "resnet", stage_sizes=(1, 1),
+                    stage_channels=(8, 16), num_classes=4)
+    clients, _ = _fleet(384, 6, 16, 4)
+    cpu_model = CNN(cfg, device="cpu")
+    need = lambda c, dt: cnn_stage_memory_bytes(
+        cpu_model, 1, 16, 16, cache_samples=c.num_samples, cache_dtype=dt)
+    # clients 0-3 just fit stage 1 with an f32, fp16, int8 and no cache;
+    # 4 and 5 keep their memory (f32), so that stage 0 has its two clients
+    clients = [dataclasses.replace(c) for c in clients]
+    for c, dt in zip(clients, ("float32", "float16", "int8", None)):
+        c.memory_bytes = 1.0 + (need(c, dt) if dt else
+                                cnn_stage_memory_bytes(cpu_model, 1, 16, 16))
+    params, state = cpu_model.init(torch.Generator().manual_seed(0))
+    results, plans = {}, {}
+    for device in ("cpu", "cuda"):
+        srv = SmartFreezeServer(CNN(cfg, device=device), clients,
+                                clients_per_round=6, batch_size=16,
+                                compress_ratio=1.0, seed=0,
+                                cache_tiers="all", compute_dtype="bfloat16",
+                                device=device)
+        results[device] = srv.run(to_torch(to_numpy(params), device),
+                                  to_torch(to_numpy(state), device),
+                                  schedule=[1, 1])
+        plans[device] = srv.cache_tier_plan
+    print(f"small tiered: stage-1 plan {plans['cuda']}")
+    assert plans["cpu"] == plans["cuda"]
+    assert set(plans["cuda"].values()) == {"f32", "fp16", "int8", None}
+    for a, b in zip(results["cpu"]["history"], results["cuda"]["history"]):
+        assert a.selected == b.selected and a.stage == b.stage
+        assert a.cache_bytes == b.cache_bytes
+        np.testing.assert_allclose(b.loss, a.loss, rtol=2e-2)
+    worst = 0.0
+    for a, b in zip(tree_leaves(results["cpu"]["params"]),
+                    tree_leaves(results["cuda"]["params"])):
+        worst = max(worst, float((b.cpu() - a).abs().max()))
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=0,
+                                   atol=2e-2)
+    print(f"small tiered bf16: card == CPU path (losses "
+          f"{[round(r.loss, 5) for r in results['cuda']['history']]} vs "
+          f"{[round(r.loss, 5) for r in results['cpu']['history']]}, "
+          f"params max abs diff {worst:.3e})")
+    # a quant-aware int8 round on the small model's stage-1 features
+    by_id = {c.client_id: c for c in clients}
+    cohort = sorted(by_id)
+    out, codes = {}, {}
+    for device in ("cpu", "cuda"):
+        model = CNN(cfg, device=device)
+        eng = _quant_aware_engine(model, to_torch(to_numpy(params), device),
+                                  to_torch(to_numpy(state), device), 1,
+                                  device)
+        before = dequant_matmul.launches
+        out[device] = eng.run_round(by_id, cohort, _consumer_params(
+            16 * 16 * 8, 32, 4, device), {}, 0,
+            use_cache={c: "int8" for c in cohort})
+        if device == "cuda":
+            assert dequant_matmul.launches > before
+        codes[device] = {c: eng._features[c] for c in cohort}
+    off = [int((codes["cuda"][c].values.cpu().int()
+                - codes["cpu"][c].values.int()).abs().max()) for c in cohort]
+    n_off = sum(int((codes["cuda"][c].values.cpu()
+                     != codes["cpu"][c].values).sum()) for c in cohort)
+    total = sum(codes["cpu"][c].values.numel() for c in cohort)
+    print(f"small quant-aware: int8 codes one step apart {n_off} of {total} "
+          f"(largest distance {max(off)})")
+    assert max(off) <= 1
+    (pc, _, lc), (pg, _, lg) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose([lg[c] for c in cohort],
+                               [lc[c] for c in cohort], rtol=1e-3, atol=1e-5)
+    for a, b in zip(tree_leaves(pc), tree_leaves(pg)):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=1e-3,
+                                   atol=1e-5)
+    print("small quant-aware int8 round: card == CPU path (rtol 1e-3, "
+          "atol 1e-5)")
+
+
 def main():
     import torch
     card = phase_versions()
@@ -1700,7 +2352,18 @@ def main():
     hybrid_decode = phase_serve(card, "zamba2-7b", HYBRID_SERVE, expect=3_328)
     phase_decode_profile(card, "zamba2-7b", (("length 256", 256),))
     phase_small_serve_reference("zamba2-7b")
+    torch.cuda.empty_cache()
+    dequant = phase_dequant_matmul()
+    tiered_b1, tiered_b3, params, state, srv = phase_tiered_path(card)
+    phase_tiered_profile(card, params, state, srv)
+    qa = phase_quant_aware(card, params, state, list(srv.clients.values()))
+    del params, state, srv
+    torch.cuda.empty_cache()
+    phase_small_tiered_reference()
     # launches: the sum over the main paths that run the kernel
+    entry["launches_by_path"] = {"resnet18 sync": entry["launches"],
+                                 "resnet18 tiered bf16": tiered_b1}
+    entry["launches"] += tiered_b1
     flash["launches"] = llama_flash + hybrid_flash
     flash["launches_by_path"] = {"llama3-8b train": llama_flash,
                                  "zamba2-7b train": hybrid_flash}
@@ -1709,9 +2372,15 @@ def main():
                                   "zamba2-7b serve": hybrid_decode}
     perturb["launches_by_path"] = {"resnet18 sync": cnn_b3,
                                    "llama3-8b train": llama_b3,
-                                   "zamba2-7b train": hybrid_b3}
-    perturb["launches"] = cnn_b3 + llama_b3 + hybrid_b3
-    print(json.dumps({"kernels": [entry, flash, decode, scan, perturb]}))
+                                   "zamba2-7b train": hybrid_b3,
+                                   "resnet18 tiered bf16": tiered_b3}
+    perturb["launches"] = cnn_b3 + llama_b3 + hybrid_b3 + tiered_b3
+    dequant["launches_by_path"] = {
+        "resnet18 quant-aware int8 f32": qa["f32"],
+        "resnet18 quant-aware int8 bf16": qa["bf16"]}
+    dequant["launches"] = qa["f32"] + qa["bf16"]
+    print(json.dumps({"kernels": [entry, flash, decode, scan, perturb,
+                                  dequant]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,8 +7,9 @@ CUDA device without CUDA raises: nothing carries on silently on the CPU.
 The reference computes in full float32. PyTorch's cuDNN convolutions use
 TF32 by default (``torch.backends.cudnn.allow_tf32`` is True), which keeps
 about three decimal digits, so every entry point turns TF32 off for
-convolutions and matrix products alike. Whether TF32 or bf16 training is
-allowed belongs with ``compute_dtype``, which this slice does not port.
+convolutions and matrix products alike: f32 work stays f32. bf16 runs only
+where a caller asks for it with ``compute_dtype="bfloat16"``
+(``fl/engine.py:make_fused_round``), as in the reference.
 """
 from __future__ import annotations
 

@@ -9,9 +9,8 @@ from __future__ import annotations
 
 from typing import Optional
 
-# Feature-cache precision tiers in admission order. This slice ports only
-# the f32 tier; the ladder and the per-dtype prices are kept whole so the
-# admission arithmetic matches the reference's.
+# Feature-cache precision tiers in admission order, each priced at its
+# stored dtype (fl/quant.py stores them; int8 adds its f32 scales).
 CACHE_TIERS = ("f32", "fp16", "int8")
 CACHE_TIER_DTYPES = {"f32": "float32", "fp16": "float16", "int8": "int8"}
 _CACHE_DTYPE_BYTES = {"float32": 4.0, "bfloat16": 2.0, "float16": 2.0,

@@ -1,5 +1,5 @@
 """Federated round engine: local SGD per client, the Eq. 1 fold, and a
-frozen-prefix feature cache (counterpart of ``repro/fl/engine.py``'s
+tiered frozen-prefix feature cache (counterpart of ``repro/fl/engine.py``'s
 ``weighted_avg``, ``make_fused_round`` and ``RoundEngine`` on the default
 sync path).
 
@@ -17,6 +17,13 @@ by ``ingraph_compress_leaf`` (delta + error feedback, top-k), and each
 leaf's cohort is folded by ONE ``sparse_cohort_add`` kernel launch per
 cache group. Error-feedback residuals live on the device in per-leaf
 [n_clients_seen, L] row pools. BN state is always a dense weighted average.
+
+The feature cache stores each admitted client's prefix features at its
+tier (``fl/quant.py``: f32, fp16, or int8 with f32 scales) on the device,
+and a round runs each tier's clients as one group. With
+``compute_dtype="bfloat16"`` local training runs on a bf16 copy of the
+params; the master params, the optimizer state and the Eq. 1 fold stay
+f32.
 """
 from __future__ import annotations
 
@@ -29,6 +36,10 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.fl.client import SimClient, batch_index_plan
 from repro_torch.fl.compression import ingraph_compress_leaf, topk_keep
+from repro_torch.fl.quant import (EncodedFeatures, cast_floating,
+                                  encode_features, feature_batch_arrays,
+                                  make_input_cast_loss, make_tiered_loss,
+                                  normalize_tier)
 from repro_torch.models.module import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim import (Optimizer, apply_updates,
                                clip_by_global_norm)
@@ -63,7 +74,8 @@ def _cast_like(acc, ref):
 
 def make_fused_round(loss_fn: LossFn, optimizer: Optimizer, *,
                      clip_norm: float = 10.0,
-                     compress_ratio: Optional[float] = None):
+                     compress_ratio: Optional[float] = None,
+                     compute_dtype: Optional[str] = None):
     """Build the round function.
 
     ``round_fn(params, frozen, state, batches, weights)``
@@ -80,24 +92,41 @@ def make_fused_round(loss_fn: LossFn, optimizer: Optimizer, *,
     params-shaped tree of [K, L] f32 error-feedback rows) and also returns
     the new residuals. ``compress_ratio=1.0`` still goes through the
     sparse fold and reproduces the dense Eq. 1 aggregate (allclose).
+
+    ``compute_dtype`` (``"bfloat16"``) trains in mixed precision, as the
+    reference does: each step takes the gradients with respect to a bf16
+    copy of the params, with the client's frozen tree cast once and the
+    batch's floating entries (but not its ``*_scale`` entries) cast, and
+    casts them back to f32. The carried params are f32 master weights, the
+    optimizer state and the Eq. 1 fold stay f32, BN state returns in its
+    dtype and the loss in f32. ``None`` is the f32 loop.
     """
+    cdt = getattr(torch, compute_dtype) if compute_dtype is not None else None
+    loss_fn = make_input_cast_loss(loss_fn, compute_dtype)
 
     def local_train(params, frozen, state, batches):
         opt_state = optimizer.init(params)
+        if cdt is not None:
+            frozen = cast_floating(frozen, cdt)
         p, st = params, state
         n = next(iter(batches.values())).shape[0]
         lsum = torch.zeros((), dtype=torch.float32,
                            device=tree_leaves(params)[0].device)
         for t in range(n):
             batch = {k: v[t] for k, v in batches.items()}
-            req = tree_map(lambda x: x.detach().requires_grad_(True), p)
+            req = tree_map(lambda x: x.detach().requires_grad_(True),
+                           p if cdt is None else cast_floating(p, cdt))
             loss, st2 = loss_fn(req, frozen, st, batch)
             grads = torch.autograd.grad(loss, tree_leaves(req))
             grads = tree_unflatten(req, grads)
             with torch.no_grad():
+                if cdt is not None:
+                    grads = tree_map(lambda g, m: g.to(m.dtype), grads, p)
+                    st2 = tree_map(lambda a, m: a.to(m.dtype), st2, st)
+                    loss = loss.float()
                 grads, _ = clip_by_global_norm(grads, clip_norm)
                 ups, opt_state = optimizer.update(grads, opt_state, p)
-                p = apply_updates(tree_map(torch.Tensor.detach, req), ups)
+                p = apply_updates(tree_map(torch.Tensor.detach, p), ups)
             st = tree_map(torch.Tensor.detach, st2)
             lsum = lsum + loss.detach()
         return p, st, lsum / max(n, 1)
@@ -148,8 +177,9 @@ class RoundEngine:
     error-feedback residuals, whose shapes follow the stage's params.
 
     The feature cache holds each admitted client's shard, pushed once
-    through the frozen prefix, as f32 tensors on ``device`` (the
-    reference's ``"f32"`` tier; fp16 and int8 tiers are not ported).
+    through the frozen prefix and encoded at its tier on write
+    (``fl/quant.py``), as tensors on ``device``. ``compute_dtype`` is
+    ``make_fused_round``'s.
 
     ``device`` defaults to the card and raises when CUDA is absent.
     """
@@ -163,34 +193,43 @@ class RoundEngine:
     local_epochs: int = 1
     clip_norm: float = 10.0
     compress_ratio: Optional[float] = None
+    compute_dtype: Optional[str] = None
     device: torch.device = "cuda"
     last_uplink_bytes: int = 0
-    _features: Dict[int, torch.Tensor] = field(default_factory=dict,
-                                               repr=False)
-    _round_fns: Dict[bool, Callable] = field(default_factory=dict, repr=False)
+    _features: Dict[int, EncodedFeatures] = field(default_factory=dict,
+                                                  repr=False)
+    _round_fns: Dict[Optional[str], Callable] = field(default_factory=dict,
+                                                      repr=False)
     _res_pool: List[torch.Tensor] = field(default_factory=list, repr=False)
     _res_row: Dict[int, int] = field(default_factory=dict, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
 
-    # ----- frozen-prefix feature cache (f32) -----
+    # ----- frozen-prefix feature cache (tiered) -----
 
-    def features_for(self, client: SimClient) -> torch.Tensor:
+    def features_for(self, client: SimClient,
+                     tier: str = "f32") -> EncodedFeatures:
         """Client's shard pushed through the frozen prefix once (eval
-        mode), memoized until the engine (== the stage) is replaced."""
-        feats = self._features.get(client.client_id)
-        if feats is None:
+        mode) and encoded at ``tier`` on write; memoized until the engine
+        (== the stage) is replaced. A tier change extracts and encodes
+        anew."""
+        enc = self._features.get(client.client_id)
+        if enc is None or enc.tier != tier:
             x = torch.as_tensor(client.data["x"], device=self.device)
             with torch.no_grad():
-                feats = self.feature_fn(x).float().contiguous()
-            self._features[client.client_id] = feats
-        return feats
+                enc = encode_features(self.feature_fn(x), tier)
+            self._features[client.client_id] = enc
+        return enc
 
     def cache_nbytes(self) -> int:
-        """Resident feature-cache bytes."""
-        return sum(f.numel() * f.element_size()
-                   for f in self._features.values())
+        """Resident feature-cache bytes at the stored dtypes: int8 values
+        and their f32 scales, not the f32 equivalent."""
+        return sum(f.nbytes for f in self._features.values())
+
+    def cache_tiers(self) -> Dict[int, str]:
+        """The tier each cached client is stored at."""
+        return {cid: enc.tier for cid, enc in self._features.items()}
 
     # ----- error-feedback residual state (on device, per client) -----
 
@@ -237,25 +276,25 @@ class RoundEngine:
                   use_cache: Optional[Dict[int, Optional[str]]] = None
                   ) -> Tuple[Any, Any, Dict[int, float]]:
         """One federated round over ``selected``. Returns (params, state,
-        per-client mean loss). The cohort splits into a cached group and a
-        recompute group (their batches differ), each runs as one fused
-        round, and the group aggregates combine by total weight — the same
-        Eq. 1 average as one flat cohort. ``use_cache`` maps client ids to
-        ``"f32"`` (cached) or ``None`` (recompute)."""
+        per-client mean loss). The cohort splits into one group per cache
+        tier plus a recompute group (their batches differ), in the order
+        their first clients appear; each runs as one fused round, and the
+        group aggregates combine by total weight — the same Eq. 1 average
+        as one flat cohort. ``use_cache`` maps client ids to a tier
+        (``"f32"``, ``"fp16"``, ``"int8"``; ``True`` is ``"f32"``) or
+        ``None`` (recompute)."""
         use_cache = use_cache or {}
         self.last_uplink_bytes = 0
-        groups: Dict[bool, List[int]] = {}
+        groups: Dict[Optional[str], List[int]] = {}
         for cid in selected:
-            tier = use_cache.get(cid) if self.cached_loss_fn is not None else None
-            if tier not in (None, "f32"):
-                raise ValueError(f"cache tier {tier!r} is not ported; only "
-                                 "'f32' or None")
-            groups.setdefault(tier is not None, []).append(cid)
+            tier = (normalize_tier(use_cache.get(cid))
+                    if self.cached_loss_fn is not None else None)
+            groups.setdefault(tier, []).append(cid)
         partials = []
         losses: Dict[int, float] = {}
-        for cached, cids in groups.items():
+        for tier, cids in groups.items():
             p_g, s_g, l_g, w_g = self._run_fused(clients, cids, params, state,
-                                                 round_idx, cached=cached)
+                                                 round_idx, tier=tier)
             partials.append((p_g, s_g, w_g))
             losses.update(l_g)
         if len(partials) == 1:
@@ -266,34 +305,45 @@ class RoundEngine:
                 weighted_avg([p[1] for p in partials], w), losses)
 
     def _client_batches(self, client: SimClient, plan: List[np.ndarray],
-                        cached: bool) -> Dict[str, torch.Tensor]:
+                        tier: Optional[str]) -> Dict[str, torch.Tensor]:
+        """The client's minibatches [n_steps, batch, ...]: host data moved
+        to the device, and for a cached client its encoded features (and
+        int8 scales) gathered on the device by the same index plan."""
         idx = (np.stack(plan) if plan
                else np.zeros((0, self.batch_size), np.int64))
-        out = {}
-        for key, arr in client.data.items():
-            if key == "x" and cached:
-                feats = self.features_for(client)
-                out[key] = feats[torch.as_tensor(idx, device=self.device)]
-            else:
-                out[key] = torch.as_tensor(arr[idx], device=self.device)
+        feats = ({} if tier is None else
+                 feature_batch_arrays(self.features_for(client, tier)))
+        out = {key: torch.as_tensor(arr[idx], device=self.device)
+               for key, arr in client.data.items() if key not in feats}
+        if feats:
+            idx_dev = torch.as_tensor(idx, device=self.device)
+            out.update({key: t[idx_dev] for key, t in feats.items()})
         return out
 
-    def _run_fused(self, clients, cids, params, state, round_idx, *, cached):
+    def _group_loss_fn(self, tier: Optional[str]) -> LossFn:
+        """The group's loss: a cached group consumes its encoded features,
+        decoded inside the loss (``fl/quant.py:make_tiered_loss``)."""
+        if tier is None:
+            return self.loss_fn
+        return make_tiered_loss(self.cached_loss_fn, tier, self.compute_dtype)
+
+    def _run_fused(self, clients, cids, params, state, round_idx, *, tier):
         plans = [batch_index_plan(clients[c].num_samples, self.batch_size,
                                   self.local_epochs,
                                   clients[c].round_seed(round_idx))
                  for c in cids]
-        batches = [self._client_batches(clients[c], plan, cached)
+        batches = [self._client_batches(clients[c], plan, tier)
                    for c, plan in zip(cids, plans)]
         weights = np.asarray([clients[c].num_samples for c in cids],
                              np.float32)
-        fn = self._round_fns.get(cached)
+        fn = self._round_fns.get(tier)
         if fn is None:
-            fn = self._round_fns[cached] = make_fused_round(
-                self.cached_loss_fn if cached else self.loss_fn,
-                self.optimizer, clip_norm=self.clip_norm,
-                compress_ratio=self.compress_ratio)
-        frozen = {} if cached else (self.frozen if self.frozen is not None else {})
+            fn = self._round_fns[tier] = make_fused_round(
+                self._group_loss_fn(tier), self.optimizer,
+                clip_norm=self.clip_norm, compress_ratio=self.compress_ratio,
+                compute_dtype=self.compute_dtype)
+        frozen = ({} if tier is not None else
+                  (self.frozen if self.frozen is not None else {}))
         w_dev = torch.as_tensor(weights, device=self.device)
         if self.compress_ratio is not None:
             rows = self._residual_rows(cids, tree_leaves(params))

@@ -11,10 +11,14 @@
       stage when it has converged;
   (4) grow the model until every stage is trained.
 
+The feature cache is admitted per client and stage by the memory model's
+ladder over ``cache_tiers`` (f32 -> fp16 -> int8 with ``"all"``), and
+``compute_dtype="bfloat16"`` trains every stage's clients in bf16 with f32
+master weights (``fl/engine.py``, ``fl/quant.py``).
+
 Not ported in this slice, and rejected with ``TypeError`` rather than
 ignored: ``mesh``, ``faults``, ``screen_updates``, ``aggregator``,
-``freeze_rollback`` (and its knobs), ``compute_dtype``, ``cache_tiers``
-other than ``("f32",)``, the deadline and async policies
+``freeze_rollback`` (and its knobs), the deadline and async policies
 (``deadline_factor``, ``aggregation`` other than sync), ``availability``,
 ``fused`` and ``use_pallas``, and ``run``'s ``ckpt_manager`` and
 ``resume``. The compressed fold always goes through
@@ -33,7 +37,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core import freezing_cnn as fz
-from repro_torch.core.memory_model import (CACHE_TIER_DTYPES,
+from repro_torch.core.memory_model import (CACHE_TIER_DTYPES, CACHE_TIERS,
                                            cache_tier_ladder,
                                            cnn_stage_memory_bytes)
 from repro_torch.core.pace import PaceController
@@ -93,15 +97,21 @@ class SmartFreezeServer:
                  op_kind: str = "conv",
                  selector: Optional[ParticipantSelector] = None,
                  seed: int = 0, cache_features: bool = True,
-                 cache_tiers: Union[tuple, list] = ("f32",),
+                 cache_tiers: Union[str, tuple, list] = ("f32",),
+                 compute_dtype: Optional[str] = None,
                  cache_time_scale: bool = False,
                  compress_ratio: Optional[float] = None,
                  aggregation: Union[str, object, None] = None,
                  time_model: Optional[FleetTimeModel] = None,
                  device="cuda"):
-        if tuple(cache_tiers) != ("f32",):
-            raise TypeError(f"cache_tiers={cache_tiers!r} is not ported; "
-                            "only ('f32',)")
+        # admission ladder, most exact first; "all" is f32 -> fp16 -> int8
+        self.cache_tiers = (CACHE_TIERS if cache_tiers == "all"
+                            else tuple(cache_tiers))
+        unknown = [t for t in self.cache_tiers if t not in CACHE_TIERS]
+        if unknown:
+            raise ValueError(f"unknown cache tiers {unknown}; "
+                             f"choose from {CACHE_TIERS}")
+        self.compute_dtype = compute_dtype
         self.device = resolve_device(device)
         self.model = model
         self.clients = {c.client_id: c for c in clients}
@@ -120,6 +130,7 @@ class SmartFreezeServer:
         self.policy = resolve_policy(aggregation or "sync")
         self.time_model = time_model
         self.history: List[RoundResult] = []
+        self.cache_tier_plan: Dict[int, Optional[str]] = {}  # current stage
         self._last_loss: Dict[int, float] = {}
         self.image_size = int(next(iter(self.clients.values())).data["x"].shape[1])
 
@@ -157,12 +168,14 @@ class SmartFreezeServer:
             cached_loss_fn=cached_loss, feature_fn=feature_fn,
             batch_size=self.batch_size, local_epochs=self.local_epochs,
             clip_norm=10.0, compress_ratio=self.compress_ratio,
-            device=self.device)
+            compute_dtype=self.compute_dtype, device=self.device)
 
     def _cache_plan(self, stage: int) -> Dict[int, Optional[str]]:
-        """Eq. 12 admission of the f32 feature cache per client: granted
-        when the stage requirement plus the shard's prefix activations
-        fits the client's memory; ``None`` recomputes the prefix."""
+        """The memory model's admission ladder (Eq. 12 per tier): walk
+        ``cache_tiers`` most exact first and grant each client the first
+        tier whose stage requirement plus its shard's prefix activations at
+        that tier's dtype fits its memory; ``None`` recomputes the
+        prefix."""
         if not self.cache_features or stage == 0:
             return {}
         plan = {}
@@ -172,7 +185,7 @@ class SmartFreezeServer:
                 lambda t, _n=c.num_samples: cnn_stage_memory_bytes(
                     self.model, stage, self.batch_size, self.image_size,
                     cache_samples=_n, cache_dtype=CACHE_TIER_DTYPES[t]),
-                tiers=("f32",))
+                tiers=self.cache_tiers)
         return plan
 
     # ----- main loop (one FederatedLoop per stage) -----
@@ -204,6 +217,7 @@ class SmartFreezeServer:
                 op_kind=self.op_kind)
             engine = self._stage_engine(stage, frozen, state)
             cache_ok = self._cache_plan(stage)
+            self.cache_tier_plan = cache_ok
             mem_req = cnn_stage_memory_bytes(model, stage, self.batch_size,
                                              self.image_size)
             stage_base = params

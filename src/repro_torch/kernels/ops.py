@@ -3,9 +3,9 @@
 A CUDA tensor goes to the kernel, which launches or raises. A CPU tensor
 takes the kernel's plain version in ``kernels/ref.py``, and that is the
 only case in which a forward runs the plain version. Flash attention's
-backward is autograd through its plain version on either device, and the
-SSD scan's autograd through its chunked plain form: the reference has no
-backward kernel either.
+and the dequantizing GEMM's backwards are autograd through their plain
+versions on either device, and the SSD scan's autograd through its chunked
+plain form: the reference has no backward kernel either.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels import block_perturb
 from repro_torch.kernels import decode_attention as dec
+from repro_torch.kernels import dequant_matmul as dqmm
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref, sparse_agg
 from repro_torch.kernels import ssm_scan
@@ -107,6 +108,40 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, log_a: torch.Tensor,
     ``chunk`` is the backward's chunk length (S % chunk == 0). The forward
     is the same function for any chunk."""
     return _SSDScan.apply(x, dt, log_a, Bm, Cm, chunk)
+
+
+class _DequantMatmul(torch.autograd.Function):
+    """Forward: the kernel on CUDA tensors, ``dequant_matmul_ref`` on CPU
+    tensors. Backward: autograd through ``dequant_matmul_ref`` with q held
+    constant, the reference's custom_vjp (``repro/kernels/ops.py:
+    dequant_matmul``); q is cache data and gets no gradient, the scale's
+    gradient comes back in the caller's shape of the scale."""
+
+    @staticmethod
+    def forward(ctx, q, scale, w, out_dtype):
+        ctx.save_for_backward(q, scale, w)
+        ctx.out_dtype = out_dtype
+        if q.device.type == "cpu":
+            return ref.dequant_matmul_ref(q, scale, w, out_dtype)
+        return dqmm.dequant_matmul(q, scale, w, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, scale, w = ctx.saved_tensors
+        scale, w = scale.detach().requires_grad_(), w.detach().requires_grad_()
+        with torch.enable_grad():
+            out = ref.dequant_matmul_ref(q.detach(), scale, w, ctx.out_dtype)
+        ds, dw = torch.autograd.grad(out, (scale, w), g)
+        return None, ds, dw, None
+
+
+def dequant_matmul(q: torch.Tensor, scale: torch.Tensor, w: torch.Tensor,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``(q.float() * scale) @ w.float()`` with f32 accumulation, [M, N] in
+    ``out_dtype``; q [M, K] int8, f32 or bf16, w [K, N], the scale in any
+    layout ``ref.normalize_scale`` takes (``kernels/dequant_matmul.py``).
+    Differentiable in scale and w."""
+    return _DequantMatmul.apply(q, scale, w, out_dtype)
 
 
 def diff_sqnorm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

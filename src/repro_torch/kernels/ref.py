@@ -4,6 +4,8 @@
 card's main path calls them."""
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 
@@ -25,6 +27,49 @@ def diff_sqnorm_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (``np.square(v, dtype=np.float64)``)."""
     d = (a.reshape(-1).float() - b.reshape(-1).float()).double()
     return torch.sum(d * d)
+
+
+def normalize_scale(scale: torch.Tensor, M: int, K: int
+                    ) -> Tuple[str, torch.Tensor]:
+    """Classify a scale broadcastable to q [M, K] as ``(kind, 2-D view)``,
+    the port's copy of ``repro/kernels/dequant_matmul.py:normalize_scale``
+    with its order of checks: a 0-d, ``(1,)`` or ``(1, 1)`` scale is a
+    broadcast column scale ``[1, K]``; a 1-D scale of length K is a column
+    scale (even when M == K), of length M a row scale; ``[M, 1]`` is
+    ``row``, ``[1, K]`` ``col``, ``[M, K]`` ``full``. The view shares the
+    caller's tensor, so a gradient through it lands in the caller's shape.
+    Anything else raises ``ValueError``."""
+    shape = tuple(scale.shape)
+    if scale.dim() == 0 or shape in ((1,), (1, 1)):
+        return "col", scale.reshape(1, 1).expand(1, K)
+    if scale.dim() == 1:
+        if shape[0] == K:
+            return "col", scale.reshape(1, K)
+        if shape[0] == M:
+            return "row", scale.reshape(M, 1)
+    if scale.dim() == 2:
+        if shape == (M, 1):
+            return "row", scale
+        if shape == (1, K):
+            return "col", scale
+        if shape == (M, K):
+            return "full", scale
+    raise ValueError(
+        f"scale shape {shape} not broadcastable to q ({M}, {K}); reshape "
+        "higher-rank quantizer scales to the GEMM layout first")
+
+
+def dequant_matmul_ref(q: torch.Tensor, scale: torch.Tensor, w: torch.Tensor,
+                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``(q.float() * scale.float()) @ w.float()`` with f32 accumulation,
+    cast to ``out_dtype`` (the reference's ``dequant_matmul_ref``). q
+    [M, K] int8, f32 or bf16; scale as ``normalize_scale`` takes it; w
+    [K, N]. Differentiable in scale and w."""
+    if q.dim() != 2 or w.dim() != 2 or q.shape[1] != w.shape[0]:
+        raise ValueError(f"q {tuple(q.shape)} and w {tuple(w.shape)} do not "
+                         "make a [M, K] @ [K, N] product")
+    _, s = normalize_scale(scale, q.shape[0], q.shape[1])
+    return ((q.float() * s.float()) @ w.float()).to(out_dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

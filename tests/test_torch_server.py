@@ -127,8 +127,8 @@ def test_two_stage_trajectory_matches_reference(monkeypatch):
                                     dict(screen_updates=True),
                                     dict(aggregator="mean"),
                                     dict(freeze_rollback=True),
-                                    dict(compute_dtype="bfloat16"),
-                                    dict(cache_tiers="all"),
+                                    dict(rollback_guard=0.5),
+                                    dict(fused=True),
                                     dict(deadline_factor=2.0),
                                     dict(availability=None),
                                     dict(use_pallas=True)])
@@ -155,8 +155,8 @@ def test_unported_policies_and_run_arguments_raise():
 
 def test_port_imports_without_jax_or_reference():
     """Every module of the port imports with JAX and the JAX package
-    blocked, the LM, serving, hybrid and B3 slices' modules among them, and
-    registering the ported configs pulls in nothing of either;
+    blocked, the LM, serving, hybrid, B3 and tier slices' modules among
+    them, and registering the ported configs pulls in nothing of either;
     chip_smoke.py imports neither."""
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -172,7 +172,8 @@ def test_port_imports_without_jax_or_reference():
             "'repro_torch.launch.train', 'repro_torch.kernels.decode_attention', "
             "'repro_torch.launch.serve', 'repro_torch.configs.zamba2_7b', "
             "'repro_torch.models.ssm', 'repro_torch.kernels.ssm_scan', "
-            "'repro_torch.kernels.block_perturb', 'repro_torch.core.pace'):\n"
+            "'repro_torch.kernels.block_perturb', 'repro_torch.core.pace', "
+            "'repro_torch.fl.quant', 'repro_torch.kernels.dequant_matmul'):\n"
             "    assert n in names, n\n"
             "from repro_torch import configs\n"
             "assert configs.names() == ['deepseek-coder-33b', 'llama3-8b', "
