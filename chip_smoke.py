@@ -37,8 +37,10 @@ Phases, each of which exits non-zero on failure:
      model, and the card's pace controller against the CPU path's;
  11. free the training phases' memory, then hold the flash-decode kernel
      (B6) against its plain version at the Llama-3-8B serving shape, the
-     decode_32k cut and its variants (Zamba2-7B's head dim 112 and
-     hubert-xlarge's 80 among them), with its times;
+     decode_32k cut and its variants (Zamba2-7B's head dim 112,
+     hubert-xlarge's 80, the MLA widths 96 and 192, dk 96 with dv 64, f32
+     at 256), with its times; each case checks that one call runs one
+     device kernel and that a rerun gives equal bits;
  12. drive the serving path: ``launch/serve.py:serve`` on full-width
      Llama-3-8B (batch 8, 960 prompt + 64 generated tokens: 1,024 decode
      steps), with every kernel's launch count set to 0 just before and read
@@ -530,7 +532,7 @@ def _kernel_class(name):
         return "sparse_cohort_add"
     if "flash_fwd" in low:
         return "flash_attention (B4)"
-    if "decode_split" in low or "decode_merge" in low:
+    if "decode_attention_cluster" in low:
         return "decode_attention (B6)"
     if "ssd_scan" in low:
         return "ssd_scan (B5)"
@@ -763,7 +765,7 @@ FLASH_CASES = [("main", 4, 1024, 32, 8, 128, "bfloat16", True),
 # is one or two ulps of the output's own magnitude (the kernel carries p as
 # two bf16 terms, so both versions compute in f32 and round once to bf16);
 # atol 1e-5 covers outputs near zero, where q k^T's f32 sums on the tensor
-# cores leave about 1e-6 of every output (B6, on the CUDA cores, takes
+# cores leave about 1e-6 of every output (B6 holds its bound at an atol of
 # 1e-6). f32: summation order only.
 FLASH_TOL = {"bfloat16": (2 ** -7, 1e-5), "float32": (1e-5, 1e-5)}
 
@@ -1185,9 +1187,10 @@ def phase_small_lm_reference(arch="llama3-8b"):
           f"{low_memory}; card pace == CPU pace, rtol {PACE_RTOL})")
 
 
-# (name, B, S, Hq, Hkv, d, dtype, lengths): the first three are the serving
-# path's shape (Llama-3-8B, batch 8, a 1,024-token cache) at three lengths;
-# the fourth the decode_32k cut (DECODE_32K.seq_len, batch 128 cut to 8)
+# (name, B, S, Hq, Hkv, d, dtype, lengths), d a head dim or (dk, dv): the
+# first three are the serving path's shape (Llama-3-8B, batch 8, a
+# 1,024-token cache) at three lengths; the fourth the decode_32k cut
+# (DECODE_32K.seq_len, batch 128 cut to 8)
 def _decode_cases():
     from repro_torch.configs import DECODE_32K
     S32 = DECODE_32K.seq_len
@@ -1208,7 +1211,16 @@ def _decode_cases():
             # hubert-xlarge's width, 16 heads of 80, at ragged lengths
             ("d=80 hubert", 8, 1024, 16, 16, 80, "bfloat16",
              [1024, 1, 1023, 517, 0, 64, 800, 33]),
-            ("d=80 f32", 4, 1000, 16, 4, 80, "float32", [1000, 0, 999, 2])]
+            ("d=80 f32", 4, 1000, 16, 4, 80, "float32", [1000, 0, 999, 2]),
+            # run-time head dims: the MLA widths nope + rope (64 + 32 and
+            # deepseek-v2's 128 + 64), dv below dk, and f32 at the ceiling
+            ("d=96", 8, 1024, 32, 8, 96, "bfloat16",
+             [1024, 1, 1023, 517, 0, 64, 800, 33]),
+            ("d=192", 8, 1024, 16, 16, 192, "bfloat16",
+             [1024, 1, 1023, 517, 0, 64, 800, 33]),
+            ("dk=96 dv=64", 8, 1024, 32, 8, (96, 64), "bfloat16",
+             [1024, 1, 1023, 517, 0, 64, 800, 33]),
+            ("d=256 f32", 4, 1000, 16, 4, 256, "float32", [1000, 0, 999, 2])]
 
 
 # (rtol, atol) of |err| <= atol + rtol |plain|. bf16: rtol 2^-7 is one or
@@ -1253,16 +1265,68 @@ def _time_cold_ms(fns, reps=24):
     return start.elapsed_time(end) / reps
 
 
+def _graph_nodes(fn):
+    """Node types of one call of ``fn`` captured into a CUDA graph
+    (stream capture through the CUDA runtime that torch loaded): 0 is a
+    kernel, anything else a copy, a set or another node."""
+    import ctypes
+    import torch
+    rt = ctypes.CDLL(f"libcudart.so.{torch.version.cuda.split('.')[0]}")
+    stream = torch.cuda.Stream()
+    graph, count = ctypes.c_void_p(), ctypes.c_size_t(0)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(stream):
+        # thread-local capture; the call's output comes from the cache
+        # of the earlier calls, so nothing is allocated while capturing
+        assert rt.cudaStreamBeginCapture(
+            ctypes.c_void_p(stream.cuda_stream), 1) == 0
+        fn()
+        assert rt.cudaStreamEndCapture(ctypes.c_void_p(stream.cuda_stream),
+                                       ctypes.byref(graph)) == 0
+    assert rt.cudaGraphGetNodes(graph, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert rt.cudaGraphGetNodes(graph, nodes, ctypes.byref(count)) == 0
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert rt.cudaGraphNodeGetType(ctypes.c_void_p(node),
+                                       ctypes.byref(kind)) == 0
+        types.append(kind.value)
+    rt.cudaGraphDestroy(graph)
+    return types
+
+
+def _device_kernels(fn):
+    """Names of the device activities (kernels, copies, sets) that one
+    call of ``fn`` runs, under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = []
+    for row in prof.key_averages():
+        if row.device_type == torch.autograd.DeviceType.CUDA:
+            names += [row.key] * row.count
+    return names
+
+
 def phase_decode_attention():
     """Kernel B6 against its plain version at the serving shape and its
     variants: the kernel, the plain version and the one-call PyTorch
-    yardstick (``scaled_dot_product_attention`` on a [B, Hq, 1, d] query
+    yardstick (``scaled_dot_product_attention`` on a [B, Hq, 1, dk] query
     with kv pre-transposed to [B, Hkv, S, d] outside the timed region, a
     boolean length mask and ``enable_gqa``; it is compared on rows with
     length > 0 only, since it has no answer for an empty row). Bound: the
     bytes the function must move (K and V rows below each row's length, q
     and the output once) over 3.35 TB/s, against the flops these rows need
-    (4 d per (q head, cached row)) at the peak of the input dtype."""
+    (2 (dk + dv) per (q head, cached row)) at the peak of the input dtype.
+    Each case also checks that one call runs exactly one device kernel
+    (one kernel node when the call is captured into a CUDA graph, and
+    nothing else under torch.profiler) and that a rerun gives equal
+    bits."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dec
@@ -1271,21 +1335,32 @@ def phase_decode_attention():
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, worst = [], 0.0
     for name, B, S, Hq, Hkv, d, dtype, lengths in _decode_cases():
+        dk, dv = d if isinstance(d, tuple) else (d, d)
         dt = getattr(torch, dtype)
         elt = torch.tensor([], dtype=dt).element_size()
-        kv_bytes = 2 * B * S * Hkv * d * elt
+        kv_bytes = B * S * Hkv * (dk + dv) * elt
         copies = max(1, -(-3 * L2_BYTES // kv_bytes) + 1)
         sets = []
         for _ in range(copies):
-            q = torch.randn(B, Hq, d, generator=gen, device=dev).to(dt)
-            k = torch.randn(B, S, Hkv, d, generator=gen, device=dev).to(dt)
-            v = torch.randn(B, S, Hkv, d, generator=gen, device=dev).to(dt)
+            q = torch.randn(B, Hq, dk, generator=gen, device=dev).to(dt)
+            k = torch.randn(B, S, Hkv, dk, generator=gen, device=dev).to(dt)
+            v = torch.randn(B, S, Hkv, dv, generator=gen, device=dev).to(dt)
             sets.append((q, k, v))
         length = torch.tensor(lengths, dtype=torch.int32, device=dev)
         q, k, v = sets[0]
         got = dec.decode_attention(q, k, v, length)
         want = ref.decode_attention_ref(q, k, v, length)
+        again = dec.decode_attention(q, k, v, length)
         torch.cuda.synchronize()
+        bits = torch.int16 if elt == 2 else torch.int32
+        equal_bits = torch.equal(got.view(bits), again.view(bits))
+        # one call, one kernel: the nodes of a captured call, and what
+        # torch.profiler records of one (in a process that profiled
+        # earlier it may miss a launch from this library; it must not
+        # see anything else)
+        nodes = _graph_nodes(lambda: dec.decode_attention(q, k, v, length))
+        one_call = _device_kernels(lambda: dec.decode_attention(q, k, v,
+                                                                length))
         err = (got.float() - want.float()).abs()
         rtol, atol = DECODE_TOL[dtype]
         bad = bool((err > atol + rtol * want.float().abs()).any())
@@ -1298,7 +1373,7 @@ def phase_decode_attention():
         sees_off_by_one = bool(
             (short_err > atol + rtol * want.float().abs()).flatten(1).any(1)
             [changed].all())
-        del short, short_err
+        del short, short_err, again
         worst = max(worst, max_err)
         empty_ok = bool((got[length == 0] == 0).all())
         ms = _time_cold_ms([lambda s=s: dec.decode_attention(*s, length)
@@ -1321,21 +1396,25 @@ def phase_decode_attention():
                         .abs()[live].max())
         del tsets
         valid = sum(min(max(n, 0), S) for n in lengths)
-        nbytes = (2 * valid * Hkv * d + 2 * B * Hq * d) * elt + 4 * B
-        flops = 4 * valid * Hq * d
+        nbytes = ((valid * Hkv + B * Hq) * (dk + dv)) * elt + 4 * B
+        flops = 2 * valid * Hq * (dk + dv)
         peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
         bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
         bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / peak
                     else "operations")
-        gc, n_chunks, chunk_rows, splits = dec.plan(
-            B, S, Hq, Hkv, dec._sm_count(0))
+        p = dec.card_plan(B, S, Hq, Hkv, dk, dv, dt, 0)
+        resident = dec.resident_clusters(p, B, S, Hq, Hkv, dk, dv, dt)
         print(f"decode_attention {name:>15} B={B} S={S} Hq={Hq} Hkv={Hkv} "
-              f"d={d} {dtype} splits={splits}x{chunk_rows} copies={copies} "
+              f"dk={dk} dv={dv} {dtype} splits={p.splits}x{p.chunk_rows} "
+              f"cluster={p.splits} ring={p.stages}x{p.rows} rows "
+              f"smem={p.smem} resident_clusters={resident} copies={copies} "
               f"max_abs_err={max_err:.3e} max_ulps={ulps} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={library_ms:.4f} (err {lib_err:.3e}) "
               f"bound_ms={bound_ms:.4f} ({bound_by}) "
-              f"bound_share={bound_ms / ms:.3f} call_ms={call_ms:.4f}")
+              f"bound_share={bound_ms / ms:.3f} call_ms={call_ms:.4f} "
+              f"graph_nodes_a_call={nodes} profiled_kernels_a_call="
+              f"{len(one_call)} equal_bits={equal_bits}")
         if bad or not empty_ok:
             raise AssertionError(f"decode_attention disagrees with its plain "
                                  f"version at {name}: max_abs_err {max_err}, "
@@ -1343,12 +1422,21 @@ def phase_decode_attention():
         if not sees_off_by_one:
             raise AssertionError(f"the tolerance at {name} does not tell the "
                                  "plain version from itself one row short")
+        if nodes != [0] or len(one_call) > 1 or any(
+                "decode_attention_cluster" not in n for n in one_call):
+            raise AssertionError(f"one decode_attention call at {name} ran "
+                                 f"graph nodes {nodes}, profiled {one_call} "
+                                 "on the card, not one kernel")
+        if not equal_bits:
+            raise AssertionError(f"decode_attention at {name} gave other bits "
+                                 "on a rerun")
         rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
                          library_ms=library_ms, max_ulps=ulps,
                          bound_ms=bound_ms, bound_by=bound_by,
                          call_ms=call_ms, shape=dict(
-                             B=B, S=S, Hq=Hq, Hkv=Hkv, d=d, dtype=dtype,
-                             length=max(lengths))))
+                             B=B, S=S, Hq=Hq, Hkv=Hkv, dk=dk, dv=dv,
+                             dtype=dtype, length=max(lengths)),
+                         plan=p._asdict()))
         del sets, q, k, v, got, want, err
         torch.cuda.empty_cache()
     top = rows[2]  # the serving path's shape with a full cache
@@ -1359,9 +1447,13 @@ def phase_decode_attention():
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
             "call_ms": top["call_ms"], "shape": top["shape"],
-            # Zamba2-7B's serving shape and hubert-xlarge's width
+            "plan": top["plan"],
+            # the decode_32k cut, Zamba2-7B's serving shape, hubert-xlarge's
+            # width and the run-time widths
+            "decode_32k": rows[3],
             "d112": next(r for r in rows if r["name"] == "d=112 g=1"),
-            "d80": next(r for r in rows if r["name"] == "d=80 hubert")}
+            "d80": next(r for r in rows if r["name"] == "d=80 hubert"),
+            "dk96_dv64": next(r for r in rows if r["name"] == "dk=96 dv=64")}
 
 
 SERVE = dict(batch=8, prompt_len=960, gen_len=64)

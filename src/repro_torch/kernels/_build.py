@@ -23,6 +23,11 @@ KERNELS = ("sparse_agg", "flash_attention", "decode_attention", "ssm_scan",
            "block_perturb", "dequant_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one kernel on top of NVCC_FLAGS. decode_attention launches with
+# cudaLaunchKernelEx (cluster dimensions); from a statically linked CUDA
+# runtime torch.profiler's records drop those launches, so it binds the
+# shared runtime that torch has already loaded
+KERNEL_FLAGS = {"decode_attention": ("-cudart", "shared")}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -38,9 +43,14 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
+def flags(name: str) -> tuple:
+    """nvcc flags of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags(name)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -57,7 +67,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [_nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         pending.append((name, proc, tmp, out))
     logs = {name: "" for name in names}

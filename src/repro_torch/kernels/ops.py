@@ -65,9 +65,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  length: torch.Tensor) -> torch.Tensor:
-    """One-token GQA attention over a KV cache, q [B, Hq, d], k/v
-    [B, S, Hkv, d], length [B] int32 (``kernels/decode_attention.py``).
-    Forward only, as the reference's: it has no VJP."""
+    """One-token GQA attention over a KV cache, q [B, Hq, dk], k
+    [B, S, Hkv, dk], v [B, S, Hkv, dv], length [B] int32 -> [B, Hq, dv]
+    (``kernels/decode_attention.py``). Forward only, as the reference's:
+    it has no VJP."""
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, length)
     return dec.decode_attention(q, k, v, length)

@@ -92,10 +92,11 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          length: torch.Tensor, *, scale=None) -> torch.Tensor:
-    """One-token attention over a cache, q [B, Hq, d], k/v [B, S, Hkv, d],
-    length [B]: kv heads repeated to Hq (q head h reads kv head
-    h // (Hq / Hkv)), f32 scores, columns >= length masked to -1e30, rows
-    with length == 0 exact zeros, output in q's dtype."""
+    """One-token attention over a cache, q [B, Hq, dk], k [B, S, Hkv, dk],
+    v [B, S, Hkv, dv], length [B] -> [B, Hq, dv]: kv heads repeated to Hq
+    (q head h reads kv head h // (Hq / Hkv)), f32 scores, columns >=
+    length masked to -1e30, rows with length == 0 exact zeros, output in
+    q's dtype."""
     B, Hq, d = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     if Hkv == 0 or Hq % Hkv:
