@@ -25,8 +25,11 @@ Phases, each of which exits non-zero on failure:
      and the card's pace controller against the CPU path's on the same
      blocks over a pace-decided run;
   7. hold the flash attention kernel (B4) against its plain version at the
-     Llama-3-8B training shape and its variants (Zamba2-7B's head dim 112
-     and hubert-xlarge's 80 among them), with its times;
+     Llama-3-8B training shape and its variants (Zamba2-7B's head dim 112,
+     hubert-xlarge's 80, the run-time widths 96, 256 and dk 192 with dv
+     128, sequences of 1 and 17 among them), with its times, its plan and
+     the registers and spills of each instantiation; a rerun must give
+     equal bits;
   8. drive the LM main path: ``launch/train.py:train`` on full-width
      Llama-3-8B (32 layers, 4 stages x 2 rounds, batch 4 x 1024 tokens),
      with every kernel's launch count set to 0 just before and read just
@@ -176,6 +179,30 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
     print(f"build seconds: {secs:.2f}")
+    return logs
+
+
+def _ptxas_by_kernel(log):
+    """{(mangled-name fragment, register ceiling): (registers, spill
+    store bytes, spill load bytes)} of the B4 instantiations in an ``nvcc
+    -Xptxas -v`` log (``flash_fwd_bf16<CEIL>``, ``flash_fwd_f32<CEIL>``)."""
+    import re
+    out, key, spills = {}, None, (None, None)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '.*?(flash_fwd_(?:bf16|f32))"
+                      r"ILi(\d+)E", line)
+        if m:
+            key = (m.group(1), int(m.group(2)))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and key:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key:
+            out[key] = (int(m.group(1)),) + spills
+            key = None
+    return out
 
 
 def resnet18_leaf_lengths():
@@ -748,8 +775,8 @@ def phase_small_reference():
     print(f"small model: pace-decided stages {stages} (card pace == CPU "
           f"pace, rtol {PACE_RTOL})")
 
-# (name, B, S, Hq, Hkv, d, dtype, causal): the first is the LM main path's
-# shape (Llama-3-8B, batch 4 x 1024 tokens)
+# (name, B, S, Hq, Hkv, d, dtype, causal), d an int or (dk, dv): the first
+# is the LM main path's shape (Llama-3-8B, batch 4 x 1024 tokens)
 FLASH_CASES = [("main", 4, 1024, 32, 8, 128, "bfloat16", True),
                ("ragged S=1000", 4, 1000, 32, 8, 128, "bfloat16", True),
                ("S=4096 B=1", 1, 4096, 32, 8, 128, "bfloat16", True),
@@ -760,7 +787,16 @@ FLASH_CASES = [("main", 4, 1024, 32, 8, 128, "bfloat16", True),
                ("d=112 g=1", 4, 1024, 32, 32, 112, "bfloat16", True),
                # hubert-xlarge's encoder: 16 heads of 80, full attention
                ("d=80 hubert", 4, 1024, 16, 16, 80, "bfloat16", False),
-               ("d=80 f32", 2, 1000, 16, 4, 80, "float32", True)]
+               ("d=80 f32", 2, 1000, 16, 4, 80, "float32", True),
+               # run-time head dims: 96, the 256 ceiling, dv apart from dk
+               ("d=96", 4, 1024, 32, 8, 96, "bfloat16", True),
+               ("d=256", 4, 1024, 16, 16, 256, "bfloat16", True),
+               ("dk=192 dv=128", 4, 1024, 32, 8, (192, 128), "bfloat16",
+                True),
+               ("d=256 f32", 2, 1000, 16, 4, 256, "float32", True),
+               # a sequence shorter than one position tile and one kv tile
+               ("S=1", 4, 1, 32, 8, 128, "bfloat16", True),
+               ("S=17", 4, 17, 32, 8, 128, "bfloat16", True)]
 # (rtol, atol) of |err| <= atol + rtol |plain|. bf16: rtol 2^-7, PR 13's,
 # is one or two ulps of the output's own magnitude (the kernel carries p as
 # two bf16 terms, so both versions compute in f32 and round once to bf16);
@@ -780,33 +816,42 @@ def _sdpa(q, k, v, causal, scale):
         enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
 
 
-def phase_flash_attention():
+def phase_flash_attention(build_logs=None):
     """Kernel B4 against its plain version (f32 scores and softmax, output
     in the input dtype) at the main path's shape and its variants: ragged S,
     a long sequence, full attention, g = 1, f32 at head_dim 16, Zamba2-7B's
     head dim 112 and hubert-xlarge's 80 (its encoder's full attention, bf16
-    and f32). Without the causal mask, the plain version one key short must
-    break the bound somewhere, so that an off-by-one kernel could not pass
-    it. Bound:
-    the larger of (q, k, v, o bytes once) / 3.35 TB/s and the flops these
-    inputs need (4 B Hq d per (query, key) pair: S (S + 1) / 2 pairs when
-    causal, S^2 when not) / the peak of the dtype's unit (989 TFLOP/s bf16
-    tensor cores, 67 TFLOP/s f32)."""
+    and f32), the run-time widths 96 and 256 and dk 192 with dv 128, and
+    sequences of 1 and 17. Without the causal mask, the plain version one
+    key short must break the bound somewhere, so that an off-by-one kernel
+    could not pass it; a rerun must give equal bits. Each case prints the
+    kernel's plan and the registers and spills of the instantiation it
+    runs (from ``build_logs``, ``phase_build``'s nvcc output). Bound: the
+    larger of (q, k, v, o bytes once) / 3.35 TB/s and the flops these
+    inputs need (2 B Hq (dk + dv) per (query, key) pair: S (S + 1) / 2
+    pairs when causal, S^2 when not) / the peak of the dtype's unit (989
+    TFLOP/s bf16 tensor cores, 67 TFLOP/s f32)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    ptxas = _ptxas_by_kernel((build_logs or {}).get("flash_attention", ""))
     rows, worst = [], 0.0
     for name, B, S, Hq, Hkv, d, dtype, causal in FLASH_CASES:
+        dk, dv = d if isinstance(d, tuple) else (d, d)
         dt = getattr(torch, dtype)
-        q = torch.randn(B, S, Hq, d, generator=gen, device=dev).to(dt)
-        k = torch.randn(B, S, Hkv, d, generator=gen, device=dev).to(dt)
-        v = torch.randn(B, S, Hkv, d, generator=gen, device=dev).to(dt)
-        scale = d ** -0.5
+        q = torch.randn(B, S, Hq, dk, generator=gen, device=dev).to(dt)
+        k = torch.randn(B, S, Hkv, dk, generator=gen, device=dev).to(dt)
+        v = torch.randn(B, S, Hkv, dv, generator=gen, device=dev).to(dt)
+        scale = dk ** -0.5
         got = fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        again = fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
         want = ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
         torch.cuda.synchronize()
+        bits = torch.int16 if dtype == "bfloat16" else torch.int32
+        equal_bits = torch.equal(got.view(bits), again.view(bits))
+        del again
         rtol, atol = FLASH_TOL[dtype]
         err = (got.float() - want.float()).abs()
         bad = bool((err > atol + rtol * want.float().abs()).any())
@@ -820,8 +865,9 @@ def phase_flash_attention():
             q, k, v, causal=causal, scale=scale), reps=5)
         library_ms = _time_ms(lambda: _sdpa(q, k, v, causal, scale))
         pairs = S * (S + 1) // 2 if causal else S * S
-        flops = 4 * B * Hq * d * pairs
-        nbytes = (2 * B * S * Hq * d + 2 * B * S * Hkv * d) * q.element_size()
+        flops = 2 * B * Hq * (dk + dv) * pairs
+        nbytes = (B * S * Hq * (dk + dv) + B * S * Hkv * (dk + dv)) \
+            * q.element_size()
         peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
         bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
         bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S > flops / peak
@@ -843,24 +889,48 @@ def phase_flash_attention():
             sees_off = bool(((off.float() - want.float()).abs()
                              > atol + rtol * want.float().abs()).any())
             del off
+        p = fa.plan(B, S, Hq, Hkv, dk, dv, q.element_size())
+        lib_smem = fa.library_smem_bytes(dk, dv, q.element_size(), p.warps,
+                                         p.stages)
+        kern = ("flash_fwd_bf16" if dtype == "bfloat16" else "flash_fwd_f32",
+                p.ceiling)
+        regs = ptxas.get(kern)
         print(f"flash_attention {name:>14} B={B} S={S} Hq={Hq} Hkv={Hkv} "
-              f"d={d} {dtype} causal={causal} max_abs_err={max_err:.3e} "
+              f"dk={dk} dv={dv} {dtype} causal={causal} "
+              f"max_abs_err={max_err:.3e} "
               f"max_ulps_off_floor={ulps} needed_atol={need_atol:.2e} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
               f"{library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
-              f"bound_share={bound_ms / ms:.3f} call_ms={call_ms:.4f}")
+              f"bound_share={bound_ms / ms:.3f} call_ms={call_ms:.4f} "
+              f"equal_bits={equal_bits}")
+        print(f"  plan: rows={p.rows} heads={p.heads} chunks={p.n_chunks} "
+              f"warps={p.warps} positions={p.positions} "
+              f"kv_rows={p.kv_rows} stages={p.stages} smem={p.smem} "
+              f"(library {lib_smem}) grid={p.grid} ceiling={p.ceiling}; "
+              f"{kern[0]}<{kern[1]}>: " + (
+                  f"{regs[0]} registers, {regs[1]} bytes spill stores, "
+                  f"{regs[2]} bytes spill loads" if regs else
+                  "ptxas counts not in this run's build log"))
         if bad:
             raise AssertionError(f"flash_attention disagrees with its plain "
                                  f"version at {name}: max_abs_err {max_err}")
         if not sees_off:
             raise AssertionError(f"the tolerance at {name} does not tell the "
                                  "plain version from itself one key off")
+        if not equal_bits:
+            raise AssertionError(f"flash_attention at {name} gave other bits "
+                                 "on a rerun")
+        if lib_smem != p.smem:
+            raise AssertionError(f"flash_attention plan at {name}: shared "
+                                 f"memory {p.smem} in Python, {lib_smem} in "
+                                 "the library")
         rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
                          library_ms=library_ms, max_ulps=ulps,
                          bound_ms=bound_ms, bound_by=bound_by,
-                         call_ms=call_ms, shape=dict(B=B, S=S, Hq=Hq, Hkv=Hkv,
-                                                     d=d, dtype=dtype,
-                                                     causal=causal)))
+                         call_ms=call_ms, plan=p._asdict(),
+                         ptxas=regs, shape=dict(B=B, S=S, Hq=Hq, Hkv=Hkv,
+                                                dk=dk, dv=dv, dtype=dtype,
+                                                causal=causal)))
         del q, k, v, got, want, err
     top = rows[0]  # the main path's shape
     return {"name": "flash_attention", "route": "cuda",
@@ -870,6 +940,7 @@ def phase_flash_attention():
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
             "call_ms": top["call_ms"], "shape": top["shape"],
+            "plan": top["plan"], "ptxas": top["ptxas"],
             # Zamba2-7B's and hubert-xlarge's shapes
             "d112": next(r for r in rows if r["name"] == "d=112 g=1"),
             "d80": next(r for r in rows if r["name"] == "d=80 hubert")}
@@ -2417,13 +2488,13 @@ def phase_small_tiered_reference():
 def main():
     import torch
     card = phase_versions()
-    phase_build()
+    logs = phase_build()
     entry = phase_sparse_agg()
     perturb = phase_block_perturb()
     entry["launches"], cnn_b3 = phase_main_path(card)
     phase_profile(card)
     phase_small_reference()
-    flash = phase_flash_attention()
+    flash = phase_flash_attention(logs)
     (llama_flash, _, llama_b3), params, cfg = phase_lm_main_path(card)
     phase_lm_profile(card, params, cfg, exact_raises=True)
     del params
