@@ -55,9 +55,12 @@ Phases, each of which exits non-zero on failure:
      small model;
  15. hold the SSD scan kernel (B5) against its plain version (the
      sequential recurrence) at Zamba2-7B's training shape, at 4,096 tokens,
-     at a ragged length and at the reference sweep's f32 widths, with the
-     model's dt and decay distributions; time kernel, plain version and the
-     chunked plain form;
+     at a ragged length, at Mamba2's published state size 128, at the
+     run-time widths (32, 16) and at the reference sweep's f32 widths, with
+     the model's dt and decay distributions; print each case's plan,
+     registers and spills, assert equal bits on a rerun; time kernel,
+     plain version and the chunked plain form against the bound (restated
+     for tensor-core products, the first bound beside it);
  16. drive the hybrid main path: ``launch/train.py:train`` on full-width
      Zamba2-7B (81 layers: 68 Mamba2, 13 shared attention over 2 tied
      sets; 6 stages x 1 round, batch 4 x 1024 tokens), with every kernel's
@@ -183,16 +186,19 @@ def phase_build():
 
 
 def _ptxas_by_kernel(log):
-    """{(mangled-name fragment, register ceiling): (registers, spill
-    store bytes, spill load bytes)} of the B4 instantiations in an ``nvcc
-    -Xptxas -v`` log (``flash_fwd_bf16<CEIL>``, ``flash_fwd_f32<CEIL>``)."""
+    """{(mangled-name fragment, template values...): (registers, spill
+    store bytes, spill load bytes)} of the B4 and B5 instantiations in an
+    ``nvcc -Xptxas -v`` log (``flash_fwd_bf16<CEIL>``, ``flash_fwd_f32<CEIL>``,
+    ``ssd_scan_bf16<HD class, N class>``, ``ssd_scan_f32<HD class, N
+    class, FULL>``; a bool as 0 or 1)."""
     import re
     out, key, spills = {}, None, (None, None)
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*?(flash_fwd_(?:bf16|f32))"
-                      r"ILi(\d+)E", line)
+        m = re.search(r"Compiling entry function '.*?(flash_fwd_(?:bf16|f32)"
+                      r"|ssd_scan_(?:bf16|f32))I((?:L[ib]\d+E)+)", line)
         if m:
-            key = (m.group(1), int(m.group(2)))
+            key = (m.group(1), *map(int, re.findall(r"L[ib](\d+)E",
+                                                    m.group(2))))
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -1436,7 +1442,12 @@ def phase_decode_attention():
         rtol, atol = DECODE_TOL[dtype]
         bad = bool((err > atol + rtol * want.float().abs()).any())
         max_err = float(err.max())
-        ulps = _bf16_ulps(got, want) if dtype == "bfloat16" else None
+        # ulps where the relative term of the bound dominates (|plain| >=
+        # atol / rtol), as B4 and B5 count them; nearer zero a sign flip is
+        # many ulps and the floor holds it
+        big = want.float().abs() >= atol / rtol
+        ulps = (_bf16_ulps(got[big], want[big])
+                if dtype == "bfloat16" and bool(big.any()) else None)
         short = ref.decode_attention_ref(q, k, v, (length - 1).clamp(min=0))
         short_err = (short.float() - want.float()).abs()
         # every row the shortening changes must break the bound somewhere
@@ -1479,7 +1490,7 @@ def phase_decode_attention():
               f"dk={dk} dv={dv} {dtype} splits={p.splits}x{p.chunk_rows} "
               f"cluster={p.splits} ring={p.stages}x{p.rows} rows "
               f"smem={p.smem} resident_clusters={resident} copies={copies} "
-              f"max_abs_err={max_err:.3e} max_ulps={ulps} "
+              f"max_abs_err={max_err:.3e} max_ulps_off_floor={ulps} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={library_ms:.4f} (err {lib_err:.3e}) "
               f"bound_ms={bound_ms:.4f} ({bound_by}) "
@@ -1722,10 +1733,14 @@ def phase_small_serve_reference(arch="llama3-8b"):
 # (name, B, S, H, hd, N, dtype, dt and decay): the first is the hybrid
 # main path's shape (Zamba2-7B, batch 4 x 1024 tokens); "model" draws dt =
 # softplus(n) (dt_bias 0) and log_a = -dt (A_log 0), "sweep" the reference
-# kernel sweep's dt = 0.3 |n| and log_a = -0.2 |n|; x, B, C standard normal
+# kernel sweep's dt = 0.3 |n| and log_a = -0.2 |n|; x, B, C standard normal.
+# "d_state 128" is Mamba2's published state size (mamba2-2.7b) at the
+# training shape; hd and N are run-time widths up to 128.
 SSD_CASES = [("main", 4, 1024, 112, 64, 64, "bfloat16", "model"),
              ("S=4096 B=1", 1, 4096, 112, 64, 64, "bfloat16", "model"),
              ("ragged S=1000", 4, 1000, 112, 64, 64, "bfloat16", "model"),
+             ("d_state 128", 4, 1024, 112, 64, 128, "bfloat16", "model"),
+             ("hd=32 N=16", 2, 1000, 8, 32, 16, "bfloat16", "sweep"),
              ("main f32", 4, 1024, 112, 64, 64, "float32", "model"),
              ("reduced f32", 2, 64, 8, 16, 16, "float32", "model"),
              ("sweep 1", 1, 64, 1, 8, 4, "float32", "sweep"),
@@ -1740,48 +1755,70 @@ SSD_CASES = [("main", 4, 1024, 112, 64, 64, "bfloat16", "model"),
 # that the plain version with its decay shifted by one position breaks the
 # bound, so that an off-by-one kernel could not pass it.
 SSD_TOL = {"bfloat16": (2 ** -7, 1e-4), "float32": (2e-4, 2e-4)}
+
+
 def _ssd_flops(S, H, hd, N, r):
-    """(C B^T flops, f32 flops) of one batch row of the chunked form at
-    chunk length r, two per multiply-add: C B^T below the diagonal once per
-    chunk (it is the same for every head), and per head and chunk the
-    decayed S x below the diagonal, C h^T, the state update's outer
-    products and its decay h * exp(total)."""
-    shared = f32 = 0
+    """(C B^T, decayed products, state decay) flops of one batch row of the
+    chunked form at chunk length r, two per multiply-add: C B^T below the
+    diagonal once per chunk (the same for every head); per head and chunk
+    the decayed S x below the diagonal, C h^T and the state update's
+    products (each with an f32 operand), and the state's decay h *
+    exp(total)."""
+    shared = decayed = decay = 0
     for n, rr in ((S // r, r), (1, S % r)):
         shared += n * rr * (rr + 1) * N
-        f32 += n * H * (rr * (rr + 1) * hd + 4 * rr * N * hd + N * hd * (rr > 0))
-    return shared, f32
+        decayed += n * H * (rr * (rr + 1) * hd + 4 * rr * N * hd)
+        decay += n * H * N * hd * (rr > 0)
+    return shared, decayed, decay
 
 
 def _ssd_bound(B, S, H, hd, N, elt):
-    """(bound ms, bound_by): the bytes the function moves (x and y once,
-    dt and log_a in f32, B and C once) over 3.35 TB/s against its
-    operations: the chunked form's at the chunk length that needs the
-    fewest (any chunk length gives the same y; the kernel's is 64), C B^T
-    at the tensor cores' peak of its operand type (989 TFLOP/s bf16, the
-    67 TFLOP/s f32 rate for f32), the decayed terms in f32 at 67 TFLOP/s."""
+    """((bound ms, bound_by), (first bound ms, bound_by)): the bytes the
+    function moves (x and y once, dt and log_a in f32, B and C once) over
+    3.35 TB/s against its operations, at the chunk length that needs the
+    fewest (any chunk length gives the same y; the kernel's is 64).
+    Operations, bf16 x, B and C: every product on tensor cores at 989
+    TFLOP/s, C B^T (exact bf16 operands) once and each product with an f32
+    operand (the decayed scores, the state, w B) as three bf16 products,
+    the terms that carry its 24 bits; the state decay at the f32 rate. f32
+    x, B and C: every flop at the 67 TFLOP/s f32 rate. The first bound,
+    kept beside it for one PR, priced the decayed products of bf16 inputs
+    at the f32 rate too, which a kernel that runs them on tensor cores
+    reads above 100%."""
     nbytes = 2 * B * S * H * hd * elt + 2 * B * S * H * 4 + 2 * B * S * N * elt
-    shared_rate = BF16_FLOPS if elt == 2 else F32_FLOPS
-    t_ops = B * min(shared / shared_rate + f32 / F32_FLOPS
-                    for shared, f32 in (_ssd_flops(S, H, hd, N, r)
-                                        for r in range(1, S + 1)))
     t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    flops = [_ssd_flops(S, H, hd, N, r) for r in range(1, S + 1)]
+    if elt == 2:
+        t_ops = B * min((cb + 3 * dec) / BF16_FLOPS + decay / F32_FLOPS
+                        for cb, dec, decay in flops)
+        t_first = B * min(cb / BF16_FLOPS + (dec + decay) / F32_FLOPS
+                          for cb, dec, decay in flops)
+    else:
+        t_ops = t_first = B * min(sum(f) / F32_FLOPS for f in flops)
+
+    def bound(t):
+        return (max(t_bytes, t) * 1e3,
+                "bytes" if t_bytes >= t else "operations")
+    return bound(t_ops), bound(t_first)
 
 
-def phase_ssd_scan():
+def phase_ssd_scan(build_logs=None):
     """Kernel B5 against its plain version (the sequential recurrence, f32
     state) at the hybrid main path's shape and its variants: a 4,096-token
-    sequence, a ragged length, f32 at full width and at the reduced
-    widths, and the reference sweep's f32 widths. Times the kernel, the
-    plain version and the chunked plain form (the model's CPU path and the
-    kernel's backward, at the model's chunk). No single PyTorch call
-    computes this function: library_ms is None."""
+    sequence, a ragged length, Mamba2's published state size 128, the
+    run-time widths (32, 16), f32 at full width and at the reduced widths,
+    and the reference sweep's f32 widths. Times the kernel, the plain
+    version and the chunked plain form (the model's CPU path and the
+    kernel's backward, at the model's chunk); prints each case's plan, the
+    instantiation's register and spill counts (from ``build_logs``,
+    ``phase_build``'s nvcc output) and whether a rerun gives equal bits.
+    No single PyTorch call computes this function: library_ms is None."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref, ssm_scan
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    ptxas = _ptxas_by_kernel((build_logs or {}).get("ssm_scan", ""))
     rows, worst = [], 0.0
     for name, B, S, H, hd, N, dtype, dist in SSD_CASES:
         dt_ = getattr(torch, dtype)
@@ -1795,8 +1832,10 @@ def phase_ssd_scan():
         Bm = torch.randn(B, S, N, generator=gen, device=dev).to(dt_)
         Cm = torch.randn(B, S, N, generator=gen, device=dev).to(dt_)
         got = ssm_scan.ssd_scan(x, dt, la, Bm, Cm)
+        again = ssm_scan.ssd_scan(x, dt, la, Bm, Cm)
         want = ref.ssd_scan_ref(x, dt, la, Bm, Cm)
         torch.cuda.synchronize()
+        equal_bits = torch.equal(got, again)
         rtol, atol = SSD_TOL[dtype]
         err = (got.float() - want.float()).abs()
         bad = bool((err > atol + rtol * want.float().abs()).any())
@@ -1812,7 +1851,7 @@ def phase_ssd_scan():
         shifted = ref.ssd_scan_ref(x, dt, la_shift, Bm, Cm)
         sees_shift = bool(((shifted.float() - want.float()).abs()
                            > atol + rtol * want.float().abs()).any())
-        del shifted
+        del shifted, again
         worst = max(worst, max_err)
         chunk = min(256, S)
         while S % chunk:
@@ -1823,13 +1862,25 @@ def phase_ssd_scan():
                             reps=2)
         chunked_ms = _time_ms(lambda: ref.ssd_chunked_ref(
             x, dt, la, Bm, Cm, chunk=chunk), reps=3)
-        bound_ms, bound_by = _ssd_bound(B, S, H, hd, N, x.element_size())
+        (bound_ms, bound_by), (first_ms, first_by) = _ssd_bound(
+            B, S, H, hd, N, x.element_size())
+        p = ssm_scan.plan(hd, N, x.element_size())
+        lib_smem = ssm_scan.library_smem_bytes(hd, N, x.element_size())
+        regs = ptxas.get(("ssd_scan_bf16", p.hd_class, p.n_class)
+                         if dtype == "bfloat16" else
+                         ("ssd_scan_f32", p.hd_class, p.n_class,
+                          int((hd, N) == (p.hd_class, p.n_class))))
         print(f"ssd_scan {name:>13} B={B} S={S} H={H} hd={hd} N={N} {dtype} "
-              f"{dist} max_abs_err={max_err:.3e} max_ulps_off_floor={ulps} "
+              f"{dist} classes=({p.hd_class}, {p.n_class}) warps={p.warps} "
+              f"plane_buffers={p.plane_buffers} smem={p.smem} "
+              f"(library {lib_smem}) ptxas(regs, spill st, spill ld)={regs} "
+              f"max_abs_err={max_err:.3e} max_ulps_off_floor={ulps} "
+              f"equal_bits={equal_bits} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} chunked_plain_ms="
               f"{chunked_ms:.4f} (chunk {chunk}) library_ms=None "
               f"bound_ms={bound_ms:.4f} ({bound_by}) bound_share="
-              f"{bound_ms / ms:.3f} call_ms={call_ms:.4f}")
+              f"{bound_ms / ms:.3f} first_bound_ms={first_ms:.4f} "
+              f"({first_by}) call_ms={call_ms:.4f}")
         if bad or not finite:
             raise AssertionError(f"ssd_scan disagrees with its plain version "
                                  f"at {name}: max_abs_err {max_err}, finite "
@@ -1838,10 +1889,19 @@ def phase_ssd_scan():
             raise AssertionError(f"the tolerance at {name} does not tell the "
                                  "plain version from one with its decay "
                                  "shifted by a position")
-        rows.append(dict(ms=ms, plain_ms=plain_ms, chunked_plain_ms=chunked_ms,
-                         library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-                         call_ms=call_ms, shape=dict(B=B, S=S, H=H, hd=hd, N=N,
-                                                     dtype=dtype)))
+        if not equal_bits:
+            raise AssertionError(f"ssd_scan at {name} gave other bits on a "
+                                 "rerun")
+        if lib_smem != p.smem:
+            raise AssertionError(f"ssd_scan's plan sizes {p.smem} bytes of "
+                                 f"shared memory at {name}, the library "
+                                 f"{lib_smem}")
+        rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
+                         chunked_plain_ms=chunked_ms, library_ms=None,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         first_bound_ms=first_ms, call_ms=call_ms,
+                         plan=p._asdict(), ptxas=regs,
+                         shape=dict(B=B, S=S, H=H, hd=hd, N=N, dtype=dtype)))
         del x, dt, la, la_shift, Bm, Cm, got, want, err
         torch.cuda.empty_cache()
     top = rows[0]  # the hybrid main path's shape
@@ -1851,8 +1911,11 @@ def phase_ssd_scan():
             "launches": None, "max_abs_err": worst, "ms": top["ms"],
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": None,
+            "first_bound_ms": top["first_bound_ms"],
             "chunked_plain_ms": top["chunked_plain_ms"],
-            "call_ms": top["call_ms"], "shape": top["shape"]}
+            "call_ms": top["call_ms"], "shape": top["shape"],
+            "plan": top["plan"], "ptxas": top["ptxas"],
+            "d_state_128": next(r for r in rows if r["name"] == "d_state 128")}
 
 
 # (name, M, K, N, q, scale, w dtype, out dtype): the first is the quant-aware
@@ -2505,7 +2568,7 @@ def main():
     phase_decode_profile(card)
     phase_small_serve_reference()
     torch.cuda.empty_cache()
-    scan = phase_ssd_scan()
+    scan = phase_ssd_scan(logs)
     (hybrid_flash, scan["launches"], hybrid_b3), params, cfg = \
         phase_lm_main_path(card, "zamba2-7b", steps=6, expect=(61, 242, 0))
     phase_lm_profile(card, params, cfg, stages=(0, 5))
