@@ -187,11 +187,15 @@ def phase_build():
 
 def _ptxas_by_kernel(log):
     """{(mangled-name fragment, template values...): (registers, spill
-    store bytes, spill load bytes)} of the B4 and B5 instantiations in an
-    ``nvcc -Xptxas -v`` log (``flash_fwd_bf16<CEIL>``, ``flash_fwd_f32<CEIL>``,
-    ``ssd_scan_bf16<HD class, N class>``, ``ssd_scan_f32<HD class, N
-    class, FULL>``; a bool as 0 or 1)."""
+    store bytes, spill load bytes)} of the B4, B5 and B2 instantiations in
+    an ``nvcc -Xptxas -v`` log (``flash_fwd_bf16<CEIL>``,
+    ``flash_fwd_f32<CEIL>``, ``ssd_scan_bf16<HD class, N class>``,
+    ``ssd_scan_f32<HD class, N class, FULL>``, a bool as 0 or 1;
+    ``dequant_matmul_kernel<BM, q type, scale kind, w type>``, the types
+    as "int8", "f32" or "bf16")."""
     import re
+    types = {"a": "int8", "f": "f32", "13__nv_bfloat16": "bf16",
+             "S1_": "bf16"}
     out, key, spills = {}, None, (None, None)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '.*?(flash_fwd_(?:bf16|f32)"
@@ -199,6 +203,13 @@ def _ptxas_by_kernel(log):
         if m:
             key = (m.group(1), *map(int, re.findall(r"L[ib](\d+)E",
                                                     m.group(2))))
+            continue
+        m = re.search(r"Compiling entry function '.*?(dequant_matmul_kernel)"
+                      r"ILi(\d+)E(a|f|13__nv_bfloat16)Li(\d)E"
+                      r"(f|13__nv_bfloat16|S1_)EEv", line)
+        if m:
+            key = (m.group(1), int(m.group(2)), types[m.group(3)],
+                   int(m.group(4)), types[m.group(5)])
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -1944,7 +1955,9 @@ B2_CASES = [("main", 32, 16384, 512, "int8", "row", "float32", "float32"),
             ("near overflow", 32, 16384, 512, "overflow", "row", "float32",
              "float32"),
             ("bf16 out", 32, 16384, 512, "int8", "row", "float32",
-             "bfloat16")]
+             "bfloat16"),
+            ("N 510", 32, 16384, 510, "int8", "row", "float32", "float32")]
+B2_TIMED = ("main", "bf16 w", "K 32768", "M 4096", "N 510")
 
 
 def _b2_bound(q, s, w):
@@ -1954,6 +1967,33 @@ def _b2_bound(q, s, w):
     K = q.shape[1]
     mag = (q.double() * s.double()).abs() @ w.double().abs()
     return 2 * K * 2.0 ** -24 * mag + K * 2.0 ** -149
+
+
+def _b2_bounds(M, K, N, q, s, w, skind):
+    """((bound ms, bound_by), (first bound ms, bound_by)): q, the scale and
+    w read once and out written once over 3.35 TB/s, against the
+    operations. The bound: each product of bf16 terms as 2 M N K at 989
+    TFLOP/s (one term for int8 or bf16 q under a row or 0-d scale, else
+    three of q s; one for bf16 w, three for f32 w; 3 x 3 keeps six
+    products), q s (three-term q only) and the epilogue at the f32 rate.
+    The first bound, printed beside it, priced 2 M N K + M K at the 67
+    TFLOP/s f32 rate, which a kernel that runs its products on tensor
+    cores reads above 100%."""
+    import torch
+    nbytes = (q.numel() * q.element_size() + s.numel() * 4
+              + w.numel() * w.element_size() + M * N * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    ta = 1 if q.dtype != torch.float32 and skind in ("row", "scalar") else 3
+    tw = 3 if w.dtype == torch.float32 else 1
+    products = {(1, 1): 1, (1, 3): 3, (3, 1): 3, (3, 3): 6}[ta, tw]
+    t_ops = (products * 2 * M * N * K / BF16_FLOPS
+             + (M * N + (M * K if ta == 3 else 0)) / F32_FLOPS)
+    t_first = (2 * M * N * K + M * K) / F32_FLOPS
+
+    def bound(t):
+        return (max(t_bytes, t) * 1e3,
+                "bytes" if t_bytes >= t else "operations")
+    return bound(t_ops), bound(t_first)
 
 
 def _b2_inputs(M, K, N, qkind, skind, wdt, gen, dev):
@@ -1982,7 +2022,45 @@ def _b2_inputs(M, K, N, qkind, skind, wdt, gen, dev):
     return q, s, w.to(getattr(torch, wdt))
 
 
-def phase_dequant_matmul():
+def _b2_nonfinite_rows(dqmm, ref, gen, dev):
+    """Rows whose scale is not finite against the plain version's pattern,
+    at the main shape with w in [0.5, 1.5) / 128 (no zero, so every q of
+    one sign gives one infinity): row 1 s = inf over q with zeros (NaN),
+    row 5 s = NaN (NaN), rows 7 and 8 s = inf over q all 3 and all -2
+    (+inf and -inf); the other rows finite and within ``_b2_bound``."""
+    import torch
+    from repro_torch.fl.quant import quantize_int8
+    M, K, N = 32, 16384, 512
+    q, s = quantize_int8(torch.randn(M, K, generator=gen, device=dev))
+    w = (torch.rand(K, N, generator=gen, device=dev) + 0.5) / K ** 0.5
+    q[7], q[8] = 3, -2
+    s[1], s[5], s[7], s[8] = float("inf"), float("nan"), float("inf"), \
+        float("inf")
+    got = dqmm.dequant_matmul(q, s, w)
+    want = ref.dequant_matmul_ref(q, s, w)
+    fin = torch.isfinite(s[:, 0])
+    bound = _b2_bound(q[fin], s[fin], w)
+    err = (got[fin].double() - want[fin].double()).abs()
+    same = (bool(torch.equal(torch.isnan(got), torch.isnan(want)))
+            and bool(torch.equal(torch.isinf(got), torch.isinf(want)))
+            and bool((got[torch.isinf(want)] == want[torch.isinf(want)])
+                     .all()))
+    pattern = {r: ("NaN" if bool(torch.isnan(got[r]).all()) else
+                   "+inf" if bool((got[r] == float("inf")).all()) else
+                   "-inf" if bool((got[r] == -float("inf")).all()) else
+                   "mixed") for r in (1, 5, 7, 8)}
+    print(f"dequant_matmul non-finite row scales: rows {pattern}, plain "
+          f"version's pattern {same}, finite rows max_err_over_bound="
+          f"{float((err / bound).max()):.3e}")
+    if not same or pattern != {1: "NaN", 5: "NaN", 7: "+inf", 8: "-inf"}:
+        raise AssertionError("dequant_matmul: rows with a non-finite scale "
+                             "do not give the plain version's NaN/inf")
+    if not bool((err <= bound).all()):
+        raise AssertionError("dequant_matmul: a finite row breaks its bound "
+                             "beside non-finite ones")
+
+
+def phase_dequant_matmul(build_logs=None):
     """Kernel B2 against its plain version on the card at the quant-aware
     path's shape and its variants. Tolerance, per output: the f32
     summation bound ``_b2_bound`` (plus one bf16 ulp of the plain value for
@@ -1991,8 +2069,10 @@ def phase_dequant_matmul():
     the inputs cycle through copies of w, 100 MB or more in all, as the
     round finds w1 after its other work) the kernel, the plain version and
     the one-call yardstick ``torch.matmul(q.float() * s, w.float())`` with
-    TF32 off. Bound: q, scale and w read once and out written once over
-    3.35 TB/s, against 2 M N K + M K f32 operations at 67 TFLOP/s."""
+    TF32 off, against ``_b2_bounds``. Prints each case's plan and its
+    instantiation's ptxas register and spill counts (from ``build_logs``,
+    ``phase_build``'s nvcc output). Then rows with non-finite scales
+    against the plain version's NaN/inf pattern, and a bad scale shape."""
     import torch
     from repro_torch.kernels import dequant_matmul as dqmm
     from repro_torch.kernels import ref
@@ -2000,6 +2080,8 @@ def phase_dequant_matmul():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ptxas = _ptxas_by_kernel((build_logs or {}).get("dequant_matmul", ""))
+    names = {torch.int8: "int8", torch.float32: "f32", torch.bfloat16: "bf16"}
     rows, worst = {}, 0.0
     for name, M, K, N, qkind, skind, wdt, odt in B2_CASES:
         q, s, w = _b2_inputs(M, K, N, qkind, skind, wdt, gen, dev)
@@ -2024,15 +2106,18 @@ def phase_dequant_matmul():
                          > bound).any())
         max_err = float(err.max())
         worst = max(worst, max_err)
+        kind = {"scalar": 0, "row": 0, "col": 1, "full": 2}[skind]
+        regs = ptxas.get(("dequant_matmul_kernel", dqmm.block_m(M, K),
+                          names[q.dtype], kind, names[w.dtype]))
         line = (f"dequant_matmul {name:>13} M={M} K={K} N={N} q={q.dtype} "
                 f"scale={skind} w={w.dtype} out={odt} splits={splits}x{per} "
-                f"max_abs_err={max_err:.3e} max_err_over_bound="
+                f"block_m={dqmm.block_m(M, K)} ptxas(regs, spill st, spill "
+                f"ld)={regs} max_abs_err={max_err:.3e} max_err_over_bound="
                 f"{float((err / bound).max()):.3e} sees_missing_slice="
                 f"{sees_cut}")
         if qkind == "zero rows":
             ok = ok and bool((got[[3, 11]] == 0).all())
-        timed = name in ("main", "bf16 w", "K 32768", "M 4096")
-        if timed:
+        if name in B2_TIMED:
             copies = [w] + [w.clone() for _ in range(max(
                 1, -(-2 * L2_BYTES // (w.numel() * w.element_size()))))]
             ms = _time_cold_ms([lambda c=c: dqmm.dequant_matmul(q, s, c)
@@ -2043,19 +2128,17 @@ def phase_dequant_matmul():
             library_ms = _time_cold_ms([lambda c=c: torch.matmul(
                 q.float() * s2, c.float()) for c in copies], reps=24)
             call_ms = _call_ms(lambda: dqmm.dequant_matmul(q, s, w))
-            nbytes = (q.numel() * q.element_size() + s.numel() * 4
-                      + w.numel() * w.element_size() + M * N * 4)
-            t_bytes = nbytes / HBM_BYTES_PER_S
-            t_ops = (2 * M * N * K + M * K) / F32_FLOPS
-            bound_ms = max(t_bytes, t_ops) * 1e3
-            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            (bound_ms, bound_by), (first_ms, first_by) = _b2_bounds(
+                M, K, N, q, s, w, skind)
             line += (f" ms={ms:.4f} warm_ms={warm_ms:.4f} plain_ms="
                      f"{plain_ms:.4f} library_ms={library_ms:.4f} bound_ms="
-                     f"{bound_ms:.4f} ({bound_by}) bound_share="
+                     f"{bound_ms:.4f} ({bound_by}) first_bound_ms="
+                     f"{first_ms:.4f} ({first_by}) bound_share="
                      f"{bound_ms / ms:.3f} call_ms={call_ms:.4f}")
             rows[name] = dict(ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
                               library_ms=library_ms, bound_ms=bound_ms,
-                              bound_by=bound_by, call_ms=call_ms,
+                              bound_by=bound_by, first_bound_ms=first_ms,
+                              call_ms=call_ms, ptxas=regs,
                               shape=dict(M=M, K=K, N=N, q=str(q.dtype),
                                          w=str(w.dtype)))
             del copies
@@ -2070,6 +2153,7 @@ def phase_dequant_matmul():
                                  " version from one missing its last slice")
         del q, s, w, got, again, want, bound, err, short
         torch.cuda.empty_cache()
+    _b2_nonfinite_rows(dqmm, ref, gen, dev)
     q = torch.zeros(4, 8, dtype=torch.int8, device=dev)
     try:
         dqmm.dequant_matmul(q, torch.ones(3, 5, device=dev),
@@ -2085,9 +2169,11 @@ def phase_dequant_matmul():
             "launches": None, "max_abs_err": worst, "ms": top["ms"],
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            "first_bound_ms": top["first_bound_ms"],
             "warm_ms": top["warm_ms"], "call_ms": top["call_ms"],
-            "shape": top["shape"], "bf16_w": rows["bf16 w"],
-            "K_32768": rows["K 32768"], "M_4096": rows["M 4096"]}
+            "shape": top["shape"], "ptxas": top["ptxas"],
+            "bf16_w": rows["bf16 w"], "K_32768": rows["K 32768"],
+            "M_4096": rows["M 4096"], "N_510": rows["N 510"]}
 
 
 TIERED_PLAN = {1: {"f32": 6, "int8": 3, None: 1},
@@ -2579,7 +2665,7 @@ def main():
     phase_decode_profile(card, "zamba2-7b", (("length 256", 256),))
     phase_small_serve_reference("zamba2-7b")
     torch.cuda.empty_cache()
-    dequant = phase_dequant_matmul()
+    dequant = phase_dequant_matmul(logs)
     tiered_b1, tiered_b3, params, state, srv = phase_tiered_path(card)
     phase_tiered_profile(card, params, state, srv)
     qa = phase_quant_aware(card, params, state, list(srv.clients.values()))

@@ -292,17 +292,232 @@ def test_kernel_wrapper_rejects_cpu_tensors():
                                        (1, 1, 1, 132), (257, 65, 129, 132),
                                        (5, 2, 3, 8)])
 def test_split_k_plan_covers_k(M, N, K, sms):
-    """Slices of whole 32-deep steps that cover K, none empty, and a grid
-    of about 4 blocks an SM where K allows it. At the slice's main shape
-    (M 32, K 16,384, N 512) on 132 SMs: 64 slices of 256."""
+    """Slices of whole k steps of M's tile class that cover K, none empty,
+    and a grid of about one block an SM where K allows it. At the slice's
+    main shape (M 32, K 16,384, N 512) on 132 SMs: 16 slices of 1,024 over
+    8 tiles; at M 4,096 one slice (128 tiles of 128 x 128)."""
     splits, per = dqmm.plan(M, N, K, sms)
-    assert per % dqmm.BK == 0 and splits >= 1
+    assert per % dqmm.TILES[dqmm.block_m(M, K)][1] == 0 and splits >= 1
     assert splits * per >= K > (splits - 1) * per
     assert dqmm.plan(M, N, K, sms) == (splits, per)
     if (M, N, K) == (32, 512, 16384):
-        assert (splits, per) == (64, 256)
+        assert (splits, per) == (16, 1024)
     if (M, N) == (4096, 512):
-        assert splits == 1
+        assert splits == 1 and dqmm.block_m(M, K) == 128
+
+
+# ---------------------------------------------------------------------------
+# the kernel's arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _top16(x):
+    """The upper half of each f32's bits: x truncated to a bf16 value."""
+    return (np.asarray(x, np.float32).view(np.uint32)
+            & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def _split3(x):
+    """The kernel's ``split3``: x as hi + mid + lo, each a bf16 value held
+    in f32, by truncation (a +-inf keeps all of itself in hi)."""
+    x = np.asarray(x, np.float32)
+    hi = _top16(x)
+    with np.errstate(invalid="ignore"):
+        r = np.where(hi == x, np.float32(0), x - hi).astype(np.float32)
+    mid = _top16(r)
+    return hi, mid, _top16(r - mid)
+
+
+# the kernel's products of (w term, q term) besides hi x hi, smallest first,
+# by (w terms, q terms); the 3 x 3 case keeps the six of weight >= 2^-16
+_REST = {(1, 1): [], (2, 1): [(1, 0)], (3, 1): [(2, 0), (1, 0)],
+         (1, 3): [(0, 2), (0, 1)],
+         (3, 3): [(2, 0), (0, 2), (1, 1), (1, 0), (0, 1)]}
+
+
+def _emulate(q, scale, w, w_terms=3, sms=132):
+    """The kernel's sums (its 32- and 64-row classes) in numpy f32: per
+    slice of ``plan`` and per k, the kept products of bf16 terms (each
+    exact in f32) added in f32, hi x hi in one sum and the smaller ones
+    (smallest first) in another; the two added, the slices added in order;
+    then the row scale of a one-term q (int8 or bf16 q under a row or 0-d
+    scale) in the epilogue. A row whose scale is not finite is summed per
+    element, sum_k (q s) w, and left unscaled. ``w_terms`` keeps the first
+    1, 2 or 3 of w's terms (a bf16 w is its own hi)."""
+    q, w = np.asarray(q), np.asarray(w, np.float32)
+    scale = np.asarray(scale, np.float32)
+    M, K = q.shape
+    N = w.shape[1]
+    kind, sv = ref.normalize_scale(torch.as_tensor(scale), M, K)
+    sv = sv.numpy()
+    qf = q.astype(np.float32)
+    one_term = ((scale.size == 1 or kind == "row")
+                and q.dtype != np.float32)
+    if one_term:
+        srow = np.broadcast_to(scale.reshape(-1, 1), (M, 1))
+        a_terms = [qf]
+    else:
+        a_terms = list(_split3((qf * sv).astype(np.float32)))
+    w_t = _split3(w)[:w_terms]
+    pairs = _REST[len(w_t), len(a_terms)]
+    splits, per = dqmm.plan(M, N, K, sms)
+    total = np.zeros((M, N), np.float32)
+    for z in range(splits):
+        hi = np.zeros((M, N), np.float32)
+        rest = np.zeros((M, N), np.float32)
+        for k in range(z * per, min(K, (z + 1) * per)):
+            for i, t in pairs:
+                rest += a_terms[t][:, k:k + 1] * w_t[i][k]
+            hi += a_terms[0][:, k:k + 1] * w_t[0][k]
+        total += hi + rest
+    if not one_term:
+        return total
+    out = total.copy()
+    with np.errstate(invalid="ignore", over="ignore"):
+        fin = np.isfinite(srow[:, 0])
+        out[fin] = srow[fin] * total[fin]
+        for r in np.flatnonzero(~fin):
+            v = np.zeros(N, np.float32)
+            for k in range(K):
+                v += (qf[r, k] * srow[r, 0]) * w[k]
+            out[r] = v
+    return out
+
+
+def _jax_ref(q, scale, w):
+    """The JAX package's ``dequant_matmul_ref`` on numpy inputs."""
+    import jax.numpy as jnp
+    from repro.kernels.ref import dequant_matmul_ref
+    return np.asarray(dequant_matmul_ref(jnp.asarray(q), jnp.asarray(scale),
+                                         jnp.asarray(w)))
+
+
+def _bound_np(q, scale, w):
+    return f32_sum_bound(torch.as_tensor(q), torch.as_tensor(scale),
+                         torch.as_tensor(w)).numpy()
+
+
+def test_split3_is_exact_down_to_2_pow_minus_110():
+    """hi + mid + lo == x bit for bit, each term a bf16 value, for finite f32
+    x from 2^-110 up (10^6 normals scaled over 2^-110 .. 2^20, and f32's
+    extremes); below, lo is a bf16 subnormal and drops bits: 2^-111 (1 +
+    2^-23) is the first power-of-two binade where the split is not exact."""
+    rng = np.random.RandomState(0)
+    x = rng.randn(10 ** 6) * np.exp2(rng.randint(-110, 21, 10 ** 6))
+    x = np.concatenate([x, [np.finfo(np.float32).max, -np.finfo(
+        np.float32).max, 2.0 ** -110 * (1 + 2.0 ** -23), 1 + 2.0 ** -23]])
+    x = x.astype(np.float32)
+    x = x[np.abs(x) >= 2.0 ** -110]
+    terms = _split3(x)
+    for t in terms:
+        assert (t.view(np.uint32) & 0xFFFF).max() == 0  # bf16 values
+    total = terms[0].astype(np.float64) + terms[1] + terms[2]
+    np.testing.assert_array_equal(total, x.astype(np.float64))
+    edge = np.float32(2.0 ** -111 * (1 + 2.0 ** -23))
+    assert sum(float(t) for t in _split3(edge)) != float(edge)
+    hi, mid, lo = _split3(np.float32([np.inf, -np.inf]))
+    assert np.array_equal(hi, [np.inf, -np.inf]) and not mid.any() \
+        and not lo.any()
+
+
+def test_int8_is_exact_in_bf16():
+    """Every int8 value, and so every int8 q, is one exact bf16 term."""
+    v = torch.arange(-128, 128, dtype=torch.int8)
+    assert torch.equal(v.to(torch.bfloat16).float(), v.float())
+    assert np.array_equal(_top16(v.numpy().astype(np.float32)),
+                          v.numpy().astype(np.float32))
+
+
+def _emu_case(name, K=2048):
+    """numpy inputs of the main shape (M 32, N 512) cut to ``K``, from a
+    seed: int8 rows of the quantizer with row scales, w ~ N(0, 1 / K)."""
+    rng = np.random.RandomState(7)
+    M, N = 32, 512
+    x = rng.randn(M, K).astype(np.float32)
+    if name == "zero rows":
+        x[[3, 11]] = 0
+    q, s = _quantized(x)
+    w = (rng.randn(K, N) / np.sqrt(K)).astype(np.float32)
+    if name == "denormal s":
+        s = np.full_like(s, 1e-40)
+    elif name == "near overflow":
+        s = np.full_like(s, 1e36)
+        w = ((rng.rand(K, N) * 2 - 1) / K).astype(np.float32)
+    elif name == "bf16 w":
+        w = torch.as_tensor(w).to(torch.bfloat16).float().numpy()
+    elif name == "f32 q":
+        q = x
+    elif name == "col scale":
+        s = (rng.rand(K) * 0.05 + 0.001).astype(np.float32)
+    elif name == "full scale":
+        s = (rng.rand(M, K) * 0.05 + 0.001).astype(np.float32)
+    elif name == "0-d scale":
+        s = np.float32(0.02).reshape(())
+    return q, s, w
+
+
+@pytest.mark.parametrize("name", ["main cut", "zero rows", "denormal s",
+                                  "near overflow", "bf16 w", "0-d scale",
+                                  "col scale", "full scale", "f32 q"])
+def test_emulated_kernel_sums_hold_the_bound(name):
+    """The emulated kernel against the JAX package's ``dequant_matmul_ref``
+    by ``f32_sum_bound`` at the main shape cut to K 2,048 (8 slices of 256
+    by ``plan``): one-term q with three-term w (the main path), bf16 w (one
+    term), and the three-term q cases (col and full scales, f32 q) with
+    the six products of 3 x 3 that the kernel keeps. XLA on the CPU flushes
+    subnormal products to zero, so the denormal case is held against the
+    port's plain version, which keeps them, as the card does."""
+    q, s, w = _emu_case(name)
+    assert dqmm.plan(32, 512, 2048, 132) == (8, 256)
+    got = _emulate(q, s, w)
+    if name == "denormal s":
+        want = ref.dequant_matmul_ref(torch.as_tensor(q), torch.as_tensor(s),
+                                      torch.as_tensor(w)).double().numpy()
+        assert np.abs(want).max() > 0
+    else:
+        want = _jax_ref(q, s, w)
+    err = np.abs(got.astype(np.float64) - want)
+    assert np.isfinite(got).all()
+    assert (err <= _bound_np(q, s, w)).all(), float(
+        (err / _bound_np(q, s, w)).max())
+    if name == "zero rows":
+        assert (got[[3, 11]] == 0).all()
+
+
+@pytest.mark.parametrize("K,w_terms,holds", [(32, 3, True), (32, 2, False),
+                                             (2048, 2, True),
+                                             (2048, 1, False)])
+def test_term_count_against_the_bound(K, w_terms, holds):
+    """Why f32 w takes three terms. The bound allows 2 K 2^-24 of |q s| @
+    |w|, so a term count shows at small K: cut to K 32, two terms (16 bits
+    of w) break it where three hold it; at K 2,048 two still hold it and
+    one (w truncated to bf16) breaks it. Three terms make every product
+    exact, so the kernel differs from the plain version only in the order
+    of its sums, at every K."""
+    q, s, w = _emu_case("main cut", K)
+    err = np.abs(_emulate(q, s, w, w_terms).astype(np.float64)
+                 - _jax_ref(q, s, w))
+    assert bool((err <= _bound_np(q, s, w)).all()) == holds
+
+
+def test_emulated_nonfinite_row_scales_give_the_plain_pattern():
+    """Rows whose scale is inf or NaN take the per-element route: the plain
+    version's NaN (inf over q with zeros, NaN) and +-inf (inf over q of one
+    sign, w >= 0); the scale applied in the epilogue would give +-inf for
+    the first and lose the pattern."""
+    q, s, w = _emu_case("main cut", 256)
+    w = np.abs(w)
+    q[7], q[8] = 3, -2
+    s[1], s[5], s[7], s[8] = np.inf, np.nan, np.inf, np.inf
+    got, want = _emulate(q, s, w), _jax_ref(q, s, w)
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.array_equal(np.isinf(got), np.isinf(want))
+    assert np.isnan(got[[1, 5]]).all()
+    assert (got[7] == np.inf).all() and (got[8] == -np.inf).all()
+    assert np.array_equal(got[np.isinf(want)], want[np.isinf(want)])
+    with np.errstate(invalid="ignore", over="ignore"):
+        factored = s[1] * (q[1].astype(np.float32) @ w)
+    assert not np.isnan(factored).all()
 
 
 # ---------------------------------------------------------------------------
@@ -414,3 +629,74 @@ def test_kernel_rejects_bad_dtypes(cuda_device):
     with pytest.raises(ValueError):
         dqmm.dequant_matmul(q.to(torch.int8), torch.ones(3, device=cuda_device),
                             w)
+
+
+# (q dtype, scale layout, w dtype): the term counts (one-term q under a row
+# or 0-d scale, else three; one-term bf16 w, three-term f32 w) of every
+# instantiation
+_TERM_CASES = [(qd, kind, wd) for qd in ("int8", "bfloat16", "float32")
+               for kind in ("row", "scalar", "col", "full")
+               for wd in ("float32", "bfloat16")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K", [(20, 333), (50, 333), (300, 333),
+                                 (50, 16384), (300, 100)])
+@pytest.mark.parametrize("qd,kind,wd", _TERM_CASES)
+def test_kernel_term_instantiations(cuda_device, M, K, qd, kind, wd):
+    """Every (q, scale, w) instantiation in each tile class (M 20: 32 rows,
+    M 50: 64, M 300: 128, and 64 below ``CHAIN_MIN_K``), at widths whose
+    rows are not whole 16-byte vectors (K 333, N 70: the narrow-copy and
+    element paths) and split K at K 16,384: the bound, equal bits on a
+    rerun."""
+    g = torch.Generator(device=cuda_device).manual_seed(M + K)
+    N = 70
+    x = torch.randn(M, K, generator=g, device=cuda_device)
+    if qd == "int8":
+        q = torch.randint(-127, 128, (M, K), generator=g,
+                          device=cuda_device).to(torch.int8)
+    else:
+        q = x.to(getattr(torch, qd))
+    scale = {"row": torch.rand(M, 1, generator=g, device=cuda_device) + 0.1,
+             "scalar": torch.tensor(0.3, device=cuda_device),
+             "col": torch.rand(K, generator=g, device=cuda_device) + 0.1,
+             "full": torch.rand(M, K, generator=g, device=cuda_device)
+             + 0.1}[kind]
+    w = (torch.randn(K, N, generator=g, device=cuda_device)
+         / K ** 0.5).to(getattr(torch, wd))
+    got = dqmm.dequant_matmul(q, scale, w)
+    again = dqmm.dequant_matmul(q, scale, w)
+    want = ref.dequant_matmul_ref(q, scale, w)
+    err = (got.double() - want.double()).abs()
+    assert torch.equal(got, again)
+    assert bool((err <= f32_sum_bound(q, scale, w)).all()), float(
+        (err / f32_sum_bound(q, scale, w)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qd", ["int8", "float32"])
+def test_kernel_nonfinite_row_scales_give_the_plain_pattern(cuda_device,
+                                                           qd):
+    """Rows whose scale is inf or NaN: the plain version's NaN and +-inf
+    (one-term int8 q: the per-element route for those rows; three-term f32
+    q: for the blocks that meet them), the other rows within the bound."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    M, K, N = 32, 4096, 512
+    q, s = tq.quantize_int8(torch.randn(M, K, generator=g,
+                                        device=cuda_device))
+    q[7], q[8] = 3, -2
+    if qd == "float32":
+        q = q.float()
+    w = (torch.rand(K, N, generator=g, device=cuda_device) + 0.5) / K ** 0.5
+    s[1], s[5], s[7], s[8] = float("inf"), float("nan"), float("inf"), \
+        float("inf")
+    got = dqmm.dequant_matmul(q, s, w)
+    want = ref.dequant_matmul_ref(q, s, w)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert bool(torch.isnan(got[[1, 5]]).all())
+    assert bool((got[7] == float("inf")).all())
+    assert bool((got[8] == -float("inf")).all())
+    fin = torch.isfinite(s[:, 0])
+    err = (got[fin].double() - want[fin].double()).abs()
+    assert bool((err <= f32_sum_bound(q[fin], s[fin], w)).all())
