@@ -24,6 +24,20 @@ Phases, each of which exits non-zero on failure:
   6. check the card's result against the port's CPU path on a small model,
      and the card's pace controller against the CPU path's on the same
      blocks over a pace-decided run;
+ 6b. drive the aggregation policies on full-width ResNet-18 (phase 4's
+     fleet, cohort, batch, ratio and SGD): ``SmartFreezeServer.run`` under
+     the deadline policy (factor 1.5, a quarter of the fleet 20x slower,
+     availability 0.9 with dropout 0.1), under the async-buffered policy
+     (buffer 4, concurrency 8, a virtual-clock watchdog) and with
+     ``fused=False``; counts set to 0 before each run and read after, B1's
+     held against the ticks (a sequential round or an async completion
+     folds each client alone); a trimmed round, a dropout, a watchdog retry
+     and staleness asserted; one K = 1 fold of the path equal to its plain
+     version bit for bit; a stage-0 round fused and sequential in turns,
+     the sequential one profiled;
+ 6c. check the card's deadline and async runs against the port's CPU path
+     on the small model: the loop's records equal, losses and params
+     allclose;
   7. hold the flash attention kernel (B4) against its plain version at the
      Llama-3-8B training shape and its variants (Zamba2-7B's head dim 112,
      hubert-xlarge's 80, the run-time widths 96, 256 and dk 192 with dv
@@ -791,6 +805,361 @@ def phase_small_reference():
     assert [r.frozen for r in out["history"]] == flags
     print(f"small model: pace-decided stages {stages} (card pace == CPU "
           f"pace, rtol {PACE_RTOL})")
+
+class _ticks:
+    """Records every aggregation tick inside the ``with``: the loop's
+    ``RoundRecord``, the tick's wall ms (the tick ends in the round's loss
+    read-back; a synchronize on each side keeps queued work out) and the
+    loop."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.fl import sim
+        self.classes = (sim.SyncAggregation, sim.DeadlineAggregation,
+                        sim.AsyncBufferedAggregation)
+        self.saved = [c.tick for c in self.classes]
+        log = []
+
+        def wrap(tick):
+            def timed(policy, loop, r):
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rec = tick(policy, loop, r)
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                log.append((rec, (time.perf_counter() - t0) * 1e3, loop))
+                return rec
+            return timed
+        for c, tick in zip(self.classes, self.saved):
+            c.tick = wrap(tick)
+        return log
+
+    def __exit__(self, *exc):
+        for c, tick in zip(self.classes, self.saved):
+            c.tick = tick
+
+
+class _first_single_fold:
+    """Inside the ``with``, keeps a copy of the inputs and the output of
+    the first B1 launch that folds one client (K = 1) at the largest leaf
+    length seen; the launch itself is the path's own and counts once."""
+
+    def __enter__(self):
+        from repro_torch.kernels import sparse_agg
+        self.mod, self.fn = sparse_agg, sparse_agg.sparse_cohort_add
+        kept = {}
+
+        def keep(idx, vals, weights, length):
+            out = self.fn(idx, vals, weights, length)
+            if idx.shape[0] == 1 and length > kept.get("L", 0):
+                kept.update(L=length, idx=idx.clone(), vals=vals.clone(),
+                            w=weights.clone(), out=out.clone())
+            return out
+        sparse_agg.sparse_cohort_add = keep
+        return kept
+
+    def __exit__(self, *exc):
+        self.mod.sparse_cohort_add = self.fn
+
+
+def _expected_fold_launches(model, params, srv, ticks, stages):
+    """B1 launches a run's ticks imply: a sequential round (every round of
+    a ``fused=False`` server), or an async completion, folds each client
+    alone (one launch a leaf for each client trained); a fused round folds
+    once a leaf for each cache group."""
+    from repro_torch.core import freezing_cnn as fz
+    import torch
+    from repro_torch.models.module import tree_leaves
+    n, leaf_count = 0, {}
+    for (rec, _, _), stage in zip(ticks, stages):
+        if stage not in leaf_count:
+            leaf_count[stage] = len(tree_leaves(fz.init_cnn_stage_active(
+                model, params, stage, torch.Generator().manual_seed(0))[1]))
+        leaves = leaf_count[stage]
+        if rec.sequential or rec.policy == "async" or not srv.fused:
+            n += leaves * len(rec.selected)
+        else:
+            plan = srv._cache_plan(stage)
+            n += leaves * len({plan.get(c) is not None for c in rec.selected})
+    return n
+
+
+def _expected_b3(model, params, stages):
+    """phase_main_path's rule: two B3 launches a leaf of the stage block at
+    every round after a stage's first."""
+    from repro_torch.core import freezing_cnn as fz
+    import torch
+    from repro_torch.models.module import tree_leaves
+    n = 0
+    for i, stage in enumerate(stages):
+        if i and stages[i - 1] == stage:
+            _, active = fz.init_cnn_stage_active(
+                model, params, stage, torch.Generator().manual_seed(0))
+            n += 2 * len(tree_leaves(active.get("stages", active)))
+    return n
+
+
+def phase_policies(card):
+    """The deadline and async-buffered policies and the engine's sequential
+    escape hatch on full-width ResNet-18: ``phase_main_path``'s fleet,
+    cohort, batch, top-k ratio and SGD, three ``SmartFreezeServer.run``s:
+
+      1. deadline: ``DeadlineAggregation(factor=1.5)`` over
+         ``AvailabilityTrace(0.9, 0.1, seed=0)`` with a quarter of the fleet
+         20x slower (``benchmarks/run.py:sim_scale``'s straggler fleet and
+         its Eq. 6 time model at 5e7 FLOPs a sample), schedule [2, 2, 2, 2];
+      2. async: ``AsyncBufferedAggregation(buffer_size=4, concurrency=8)``
+         with a watchdog at the fleet's median completion time and 3
+         retries at backoff 2 (windows 1 to 8 x the median: the faster
+         half never times out, so a client still in flight at a merge
+         completes stale; the slowest, 6.2 x the median, finishes inside
+         the last window, so nobody is dropped for good and every buffer
+         fills), schedule [3, 3, 3, 3] (each stage's loop starts a fresh
+         in-flight heap at version 0, so staleness needs a later tick in a
+         stage);
+      3. ``fused=False`` sync, schedule [1, 1, 1, 1].
+
+    Counts set to 0 before each run and read after; B1's against the ticks
+    (a sequential round or an async completion folds each client alone),
+    B3's by ``phase_main_path``'s rule. One K = 1 fold of the path is held
+    against its plain version for equal bits. Then a stage-0 round of the
+    cohort runs fused and sequential in turns, and the sequential round
+    is profiled for the device's idle share."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import freezing_cnn as fz
+    from repro_torch.fl.server import SmartFreezeServer
+    from repro_torch.fl.sim import (AsyncBufferedAggregation,
+                                    AvailabilityTrace, DeadlineAggregation,
+                                    FleetTimeModel)
+    from repro_torch.kernels import block_perturb, ref, sparse_agg
+    from repro_torch.models.cnn import CNN, RESNET18
+    from repro_torch.models.module import tree_leaves
+    clients, _ = _fleet(10_000, 20, 32, 10)
+    stragglers = [dataclasses.replace(
+        c, capability=0.05e9 if c.client_id % 4 == 0 else 1e9)
+        for c in clients]
+    times = [c.num_samples / c.capability for c in clients]
+    timeout_s = float(np.median(times))
+    print(f"policies: async watchdog timeout_s {timeout_s!r} (the fleet's "
+          f"median |D_i| / c_i), max_retries 3, backoff 2")
+    model = CNN(RESNET18, device="cuda")
+    params, state = model.init(torch.Generator().manual_seed(0))
+    runs = [
+        ("deadline", stragglers, [2, 2, 2, 2], dict(
+            aggregation=DeadlineAggregation(factor=1.5),
+            availability=AvailabilityTrace(p_available=0.9, p_dropout=0.1,
+                                           seed=0),
+            time_model=FleetTimeModel.from_clients(stragglers,
+                                                   flops_per_sample=5e7))),
+        ("async", clients, [3, 3, 3, 3], dict(
+            aggregation=AsyncBufferedAggregation(
+                buffer_size=4, concurrency=8, timeout_s=timeout_s,
+                max_retries=3))),
+        ("sequential (fused=False)", clients, [1, 1, 1, 1],
+         dict(fused=False))]
+    out, fold = {}, None
+    t_runs = time.perf_counter()
+    for name, fleet, schedule, kw in runs:
+        srv = SmartFreezeServer(model, fleet, clients_per_round=COHORT,
+                                batch_size=32, local_epochs=1,
+                                compress_ratio=RATIO, seed=0, device="cuda",
+                                **kw)
+        torch.cuda.reset_peak_memory_stats()
+        with _timed_observes() as observe_ms, _ticks() as ticks, \
+                _first_single_fold() as kept:
+            sparse_agg.launches = block_perturb.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = srv.run(params, state, schedule=schedule)
+            torch.cuda.synchronize()
+            b1, b3 = sparse_agg.launches, block_perturb.launches
+        secs = time.perf_counter() - t0
+        hist = res["history"]
+        stages = [r.stage for r in hist]
+        for (rec, tick_ms, _), o_ms, rr in zip(ticks, observe_ms, hist):
+            print(f"{name} round {rec.round_idx} stage {rr.stage} loss "
+                  f"{rr.loss:.4f} wall_ms {tick_ms + o_ms:.1f} "
+                  f"pace_observe_ms {o_ms:.2f} selected {rec.selected} "
+                  f"dropped {rec.dropped} staleness {rec.staleness} retries "
+                  f"{rec.retries} sequential {rec.sequential} duration "
+                  f"{rec.duration!r} virtual_time {rec.t_end!r}")
+        want_b1 = _expected_fold_launches(model, res["params"], srv, ticks,
+                                          stages)
+        want_b3 = _expected_b3(model, res["params"], stages)
+        print(f"{name}: {secs:.2f} s, torch.cuda.max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated()} on {card}; "
+              f"sparse_cohort_add launches {b1} (expected {want_b1}), "
+              f"diff_sqnorm launches {b3} (expected {want_b3})")
+        assert stages == [s for s, n in enumerate(schedule)
+                          for _ in range(n)], stages
+        assert len(ticks) == len(hist)
+        assert all(math.isfinite(r.loss) for r in hist), [r.loss for r in hist]
+        leaves = tree_leaves(res["params"]) + tree_leaves(res["state"])
+        assert all(l.device.type == "cuda" for l in leaves)
+        assert all(bool(torch.isfinite(l).all()) for l in leaves)
+        assert b1 == want_b1 > 0, (b1, want_b1)
+        assert b3 == want_b3, (b3, want_b3)
+        recs = [rec for rec, _, _ in ticks]
+        if name == "deadline":
+            # late for certain: its dropout draw spares it; a dropout for
+            # certain: it finished by the 1.5 x median deadline
+            late = dropouts = 0
+            for rec, _, loop in ticks:
+                sel = rec.selected + rec.dropped
+                t = loop.times(sel, rec.round_idx)
+                cut = 1.5 * float(np.median([t[c] for c in sel] or [0.0]))
+                late += sum(not loop.dropouts([c], rec.round_idx)
+                            for c in rec.dropped)
+                dropouts += sum(t[c] <= cut for c in rec.dropped)
+            print(f"deadline: {late} clients trimmed late, {dropouts} "
+                  f"dropped out")
+            assert late > 0, "no deadline round trimmed a client"
+            assert dropouts > 0, "no client dropped out"
+            assert any(r.sequential for r in recs)
+        if name == "async":
+            assert any(r.retries for r in recs), "no watchdog retry fired"
+            assert any(v > 0 for r in recs for v in r.staleness.values())
+            assert all(len(r.selected) == 4 for r in recs)
+        if name.startswith("sequential"):
+            assert all(r.sequential is False and r.selected for r in recs)
+        if fold is None and kept:
+            fold = kept
+        out[name] = (b1, b3)
+    # one K = 1 fold of the path against its plain version: one addend an
+    # output (top-k indices are unique, the weight is 1), so equal bits
+    want = ref.sparse_cohort_add_ref(fold["idx"], fold["vals"], fold["w"],
+                                     fold["L"])
+    assert torch.equal(fold["out"], want)
+    print(f"K = 1 fold of the path (L {fold['L']}, k {fold['idx'].shape[1]}) "
+          f"== plain version, bit for bit")
+    # where a sequential round's time goes: stage 0, COHORT clients, timed
+    # against the fused round of the same cohort in turns (fused,
+    # sequential, sequential, fused), then profiled (phase_profile
+    # profiles the fused round of this cohort)
+    t_prof = time.perf_counter()
+    srv = SmartFreezeServer(model, clients, clients_per_round=COHORT,
+                            batch_size=32, compress_ratio=RATIO,
+                            device="cuda")
+    frozen, active = fz.init_cnn_stage_active(
+        model, params, 0, torch.Generator().manual_seed(0))
+    engine = srv._stage_engine(0, frozen, state)
+    cohort = list(range(COHORT))
+
+    def one_round(r, seq):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run_round(srv.clients, cohort, active, state, r,
+                         sequential=seq)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    one_round(0, True)
+    walls = {False: [], True: []}
+    for r, seq in enumerate((False, True, True, False), start=1):
+        walls[seq].append(one_round(r, seq))
+    steps = sum(c.num_samples // 32 for c in clients[:COHORT])
+    print(f"stage 0, {steps} local steps, in turns: fused round wall_ms "
+          f"{walls[False][0]:.1f}, {walls[False][1]:.1f}; sequential "
+          f"{walls[True][0]:.1f}, {walls[True][1]:.1f} on {card}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one_round(9, True)
+    by_class = {}
+    for row in prof.key_averages():
+        if row.device_type == torch.autograd.DeviceType.CUDA:
+            cls = _kernel_class(row.key)
+            by_class[cls] = by_class.get(cls, 0.0) + row.self_device_time_total
+    if by_class:
+        busy_ms = sum(by_class.values()) / 1e3
+        print(f"profile sequential stage 0: device busy ms {busy_ms:.1f}, "
+              f"idle share {1 - busy_ms / np.mean(walls[True]):.3f} (of "
+              f"its mean wall)")
+        for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
+            print(f"  {cls:>20}: {us / 1e3:9.2f} ms")
+    else:
+        print("profile sequential stage 0: torch.profiler recorded no "
+              "device time: not measured")
+    print(f"policies phase seconds: runs {t_prof - t_runs:.1f}, fused and "
+          f"sequential rounds {time.perf_counter() - t_prof:.1f}")
+    return out
+
+
+POLICY_TOL = dict(rtol=1e-3, atol=1e-5)
+
+
+def phase_small_policies_reference():
+    """The policies on the card against the port's CPU path (itself held
+    against the JAX package by tests/test_torch_policies.py), on
+    ``phase_small_reference``'s small model with client 0 20x slower:
+    deadline (factor 1.5) over ``AvailabilityTrace(0.9, 0.25, seed=0)``,
+    and async (buffer 2, concurrency 3, a watchdog at the fleet's second
+    fastest time), schedule [2, 1], ratio 1.0. The loop's records
+    (selected, dropped, staleness, retries, sequential) equal; losses,
+    params and BN state rtol 1e-3, atol 1e-5; the virtual clock rtol
+    1e-6."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.convert import to_numpy, to_torch
+    from repro_torch.fl.server import SmartFreezeServer
+    from repro_torch.fl.sim import (AsyncBufferedAggregation,
+                                    AvailabilityTrace, DeadlineAggregation)
+    from repro_torch.kernels import sparse_agg
+    from repro_torch.models.cnn import CNN, CNNConfig
+    from repro_torch.models.module import tree_leaves
+    cfg = CNNConfig("small", "resnet", stage_sizes=(1, 1),
+                    stage_channels=(8, 16), num_classes=4)
+    clients, _ = _fleet(256, 4, 16, 4)
+    clients = [dataclasses.replace(c, capability=c.capability / 20.0)
+               if c.client_id == 0 else c for c in clients]
+    times = sorted(c.num_samples / c.capability for c in clients)
+    params, state = CNN(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    policies = {
+        "deadline": lambda: dict(
+            aggregation=DeadlineAggregation(factor=1.5),
+            availability=AvailabilityTrace(0.9, 0.25, seed=0)),
+        "async": lambda: dict(aggregation=AsyncBufferedAggregation(
+            buffer_size=2, concurrency=3, timeout_s=times[1],
+            max_retries=1))}
+    for name, kw in policies.items():
+        results = {}
+        for device in ("cpu", "cuda"):
+            srv = SmartFreezeServer(CNN(cfg, device=device), clients,
+                                    clients_per_round=3, batch_size=16,
+                                    compress_ratio=1.0, seed=0,
+                                    device=device, **kw())
+            before = sparse_agg.launches
+            with _ticks() as ticks:
+                out = srv.run(to_torch(to_numpy(params), device),
+                              to_torch(to_numpy(state), device),
+                              schedule=[2, 1])
+            if device == "cuda":
+                assert sparse_agg.launches > before
+            results[device] = (out, [rec for rec, _, _ in ticks])
+        (c_out, c_recs), (g_out, g_recs) = results["cpu"], results["cuda"]
+        assert len(c_recs) == len(g_recs) == 3
+        for a, b in zip(c_recs, g_recs):
+            assert (a.selected, a.dropped, a.staleness, a.retries,
+                    a.sequential) == (b.selected, b.dropped, b.staleness,
+                                      b.retries, b.sequential), (a, b)
+            assert list(a.losses) == list(b.losses)
+            np.testing.assert_allclose(list(b.losses.values()),
+                                       list(a.losses.values()), **POLICY_TOL)
+            np.testing.assert_allclose([b.duration, b.t_end],
+                                       [a.duration, a.t_end], rtol=1e-6)
+        for a, b in zip(tree_leaves(c_out["params"]) + tree_leaves(
+                c_out["state"]), tree_leaves(g_out["params"])
+                + tree_leaves(g_out["state"])):
+            np.testing.assert_allclose(b.cpu().numpy(), a.numpy(),
+                                       **POLICY_TOL)
+        print(f"small model, {name}: card == CPU path, records "
+              f"{[(r.selected, r.dropped, r.staleness, r.retries, r.sequential) for r in g_recs]}")
+
 
 # (name, B, S, Hq, Hkv, d, dtype, causal), d an int or (dk, dv): the first
 # is the LM main path's shape (Llama-3-8B, batch 4 x 1024 tokens)
@@ -2643,6 +3012,8 @@ def main():
     entry["launches"], cnn_b3 = phase_main_path(card)
     phase_profile(card)
     phase_small_reference()
+    policies = phase_policies(card)
+    phase_small_policies_reference()
     flash = phase_flash_attention(logs)
     (llama_flash, _, llama_b3), params, cfg = phase_lm_main_path(card)
     phase_lm_profile(card, params, cfg, exact_raises=True)
@@ -2675,7 +3046,9 @@ def main():
     # launches: the sum over the main paths that run the kernel
     entry["launches_by_path"] = {"resnet18 sync": entry["launches"],
                                  "resnet18 tiered bf16": tiered_b1}
-    entry["launches"] += tiered_b1
+    entry["launches_by_path"].update(
+        {f"resnet18 {name}": b1 for name, (b1, _) in policies.items()})
+    entry["launches"] = sum(entry["launches_by_path"].values())
     flash["launches"] = llama_flash + hybrid_flash
     flash["launches_by_path"] = {"llama3-8b train": llama_flash,
                                  "zamba2-7b train": hybrid_flash}
@@ -2686,7 +3059,9 @@ def main():
                                    "llama3-8b train": llama_b3,
                                    "zamba2-7b train": hybrid_b3,
                                    "resnet18 tiered bf16": tiered_b3}
-    perturb["launches"] = cnn_b3 + llama_b3 + hybrid_b3 + tiered_b3
+    perturb["launches_by_path"].update(
+        {f"resnet18 {name}": b3 for name, (_, b3) in policies.items()})
+    perturb["launches"] = sum(perturb["launches_by_path"].values())
     dequant["launches_by_path"] = {
         "resnet18 quant-aware int8 f32": qa["f32"],
         "resnet18 quant-aware int8 bf16": qa["bf16"]}

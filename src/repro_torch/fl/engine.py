@@ -1,7 +1,7 @@
 """Federated round engine: local SGD per client, the Eq. 1 fold, and a
 tiered frozen-prefix feature cache (counterpart of ``repro/fl/engine.py``'s
-``weighted_avg``, ``make_fused_round`` and ``RoundEngine`` on the default
-sync path).
+``weighted_avg``, ``make_fused_round`` and ``RoundEngine``, with its
+sequential escape hatch).
 
 The client axis is a Python loop. The reference lowers a round to one XLA
 program and picks between ``vmap(lax.scan(...))`` and a statically
@@ -24,6 +24,11 @@ and a round runs each tier's clients as one group. With
 ``compute_dtype="bfloat16"`` local training runs on a bf16 copy of the
 params; the master params, the optimizer state and the Eq. 1 fold stay
 f32.
+
+The sequential escape hatch (``sequential=True``, or ``fused=False``) runs
+the same local step for one client at a time and compresses each client's
+update on its own: the deadline policy's straggler rounds and every async
+completion take it, so the fold runs there with K = 1.
 """
 from __future__ import annotations
 
@@ -72,6 +77,55 @@ def _cast_like(acc, ref):
     return tree_map(lambda a, r: a.to(r.dtype), acc, ref)
 
 
+def make_local_train(loss_fn: LossFn, optimizer: Optimizer, *,
+                     clip_norm: float = 10.0,
+                     compute_dtype: Optional[str] = None):
+    """One client's local SGD, the step both round paths run.
+
+    ``local_train(params, frozen, state, batches)`` runs the n_steps of
+    ``batches`` (tensors with leading dims [n_steps, batch, ...]; 0 steps
+    is allowed) from ``params`` with a fresh optimizer state and returns
+    (params, state, [per-step loss tensors]). ``compute_dtype``
+    (``"bfloat16"``) trains in mixed precision, as the reference does:
+    each step takes the gradients with respect to a bf16 copy of the
+    params, with the client's frozen tree cast once and the batch's
+    floating entries (but not its ``*_scale`` entries) cast, and casts
+    them back to f32. The carried params are f32 master weights, the
+    optimizer state stays f32, BN state returns in its dtype and the loss
+    in f32. ``None`` is the f32 loop.
+    """
+    cdt = getattr(torch, compute_dtype) if compute_dtype is not None else None
+    loss_fn = make_input_cast_loss(loss_fn, compute_dtype)
+
+    def local_train(params, frozen, state, batches):
+        opt_state = optimizer.init(params)
+        if cdt is not None:
+            frozen = cast_floating(frozen, cdt)
+        p, st = params, state
+        n = next(iter(batches.values())).shape[0]
+        losses = []
+        for t in range(n):
+            batch = {k: v[t] for k, v in batches.items()}
+            req = tree_map(lambda x: x.detach().requires_grad_(True),
+                           p if cdt is None else cast_floating(p, cdt))
+            loss, st2 = loss_fn(req, frozen, st, batch)
+            grads = torch.autograd.grad(loss, tree_leaves(req))
+            grads = tree_unflatten(req, grads)
+            with torch.no_grad():
+                if cdt is not None:
+                    grads = tree_map(lambda g, m: g.to(m.dtype), grads, p)
+                    st2 = tree_map(lambda a, m: a.to(m.dtype), st2, st)
+                    loss = loss.float()
+                grads, _ = clip_by_global_norm(grads, clip_norm)
+                ups, opt_state = optimizer.update(grads, opt_state, p)
+                p = apply_updates(tree_map(torch.Tensor.detach, p), ups)
+            st = tree_map(torch.Tensor.detach, st2)
+            losses.append(loss.detach())
+        return p, st, losses
+
+    return local_train
+
+
 def make_fused_round(loss_fn: LossFn, optimizer: Optimizer, *,
                      clip_norm: float = 10.0,
                      compress_ratio: Optional[float] = None,
@@ -93,43 +147,18 @@ def make_fused_round(loss_fn: LossFn, optimizer: Optimizer, *,
     the new residuals. ``compress_ratio=1.0`` still goes through the
     sparse fold and reproduces the dense Eq. 1 aggregate (allclose).
 
-    ``compute_dtype`` (``"bfloat16"``) trains in mixed precision, as the
-    reference does: each step takes the gradients with respect to a bf16
-    copy of the params, with the client's frozen tree cast once and the
-    batch's floating entries (but not its ``*_scale`` entries) cast, and
-    casts them back to f32. The carried params are f32 master weights, the
-    optimizer state and the Eq. 1 fold stay f32, BN state returns in its
-    dtype and the loss in f32. ``None`` is the f32 loop.
+    ``compute_dtype`` is ``make_local_train``'s; the Eq. 1 fold stays f32.
     """
-    cdt = getattr(torch, compute_dtype) if compute_dtype is not None else None
-    loss_fn = make_input_cast_loss(loss_fn, compute_dtype)
+    train = make_local_train(loss_fn, optimizer, clip_norm=clip_norm,
+                             compute_dtype=compute_dtype)
 
     def local_train(params, frozen, state, batches):
-        opt_state = optimizer.init(params)
-        if cdt is not None:
-            frozen = cast_floating(frozen, cdt)
-        p, st = params, state
-        n = next(iter(batches.values())).shape[0]
+        p, st, step_losses = train(params, frozen, state, batches)
         lsum = torch.zeros((), dtype=torch.float32,
                            device=tree_leaves(params)[0].device)
-        for t in range(n):
-            batch = {k: v[t] for k, v in batches.items()}
-            req = tree_map(lambda x: x.detach().requires_grad_(True),
-                           p if cdt is None else cast_floating(p, cdt))
-            loss, st2 = loss_fn(req, frozen, st, batch)
-            grads = torch.autograd.grad(loss, tree_leaves(req))
-            grads = tree_unflatten(req, grads)
-            with torch.no_grad():
-                if cdt is not None:
-                    grads = tree_map(lambda g, m: g.to(m.dtype), grads, p)
-                    st2 = tree_map(lambda a, m: a.to(m.dtype), st2, st)
-                    loss = loss.float()
-                grads, _ = clip_by_global_norm(grads, clip_norm)
-                ups, opt_state = optimizer.update(grads, opt_state, p)
-                p = apply_updates(tree_map(torch.Tensor.detach, p), ups)
-            st = tree_map(torch.Tensor.detach, st2)
-            lsum = lsum + loss.detach()
-        return p, st, lsum / max(n, 1)
+        for loss in step_losses:
+            lsum = lsum + loss
+        return p, st, lsum / max(len(step_losses), 1)
 
     def round_fn(params, frozen, state, batches, weights, residuals=None):
         if (residuals is None) != (compress_ratio is None):
@@ -181,6 +210,11 @@ class RoundEngine:
     (``fl/quant.py``), as tensors on ``device``. ``compute_dtype`` is
     ``make_fused_round``'s.
 
+    ``fused=False`` sends every round to the sequential escape hatch
+    (``_run_sequential``), which a round also takes with
+    ``sequential=True``: each client trains alone and its update is
+    compressed on its own, one fold of one client per leaf.
+
     ``device`` defaults to the card and raises when CUDA is absent.
     """
 
@@ -192,6 +226,7 @@ class RoundEngine:
     batch_size: int = 32
     local_epochs: int = 1
     clip_norm: float = 10.0
+    fused: bool = True
     compress_ratio: Optional[float] = None
     compute_dtype: Optional[str] = None
     device: torch.device = "cuda"
@@ -200,6 +235,8 @@ class RoundEngine:
                                                   repr=False)
     _round_fns: Dict[Optional[str], Callable] = field(default_factory=dict,
                                                       repr=False)
+    _seq_fns: Dict[Optional[str], Callable] = field(default_factory=dict,
+                                                    repr=False)
     _res_pool: List[torch.Tensor] = field(default_factory=list, repr=False)
     _res_row: Dict[int, int] = field(default_factory=dict, repr=False)
 
@@ -273,7 +310,8 @@ class RoundEngine:
 
     def run_round(self, clients: Dict[int, SimClient], selected: List[int],
                   params, state, round_idx: int, *,
-                  use_cache: Optional[Dict[int, Optional[str]]] = None
+                  use_cache: Optional[Dict[int, Optional[str]]] = None,
+                  sequential: Optional[bool] = None
                   ) -> Tuple[Any, Any, Dict[int, float]]:
         """One federated round over ``selected``. Returns (params, state,
         per-client mean loss). The cohort splits into one group per cache
@@ -282,8 +320,11 @@ class RoundEngine:
         group aggregates combine by total weight — the same Eq. 1 average
         as one flat cohort. ``use_cache`` maps client ids to a tier
         (``"f32"``, ``"fp16"``, ``"int8"``; ``True`` is ``"f32"``) or
-        ``None`` (recompute)."""
+        ``None`` (recompute). ``sequential`` picks the path of every group:
+        ``None`` is the engine's default (``not fused``), ``True`` the
+        sequential escape hatch, ``False`` the fused round."""
         use_cache = use_cache or {}
+        seq = (not self.fused) if sequential is None else sequential
         self.last_uplink_bytes = 0
         groups: Dict[Optional[str], List[int]] = {}
         for cid in selected:
@@ -293,8 +334,9 @@ class RoundEngine:
         partials = []
         losses: Dict[int, float] = {}
         for tier, cids in groups.items():
-            p_g, s_g, l_g, w_g = self._run_fused(clients, cids, params, state,
-                                                 round_idx, tier=tier)
+            runner = self._run_sequential if seq else self._run_fused
+            p_g, s_g, l_g, w_g = runner(clients, cids, params, state,
+                                        round_idx, tier=tier)
             partials.append((p_g, s_g, w_g))
             losses.update(l_g)
         if len(partials) == 1:
@@ -358,3 +400,62 @@ class RoundEngine:
         l_host = l_g.cpu().numpy()  # the round's one blocking sync
         return (p_g, s_g, {c: float(l_host[i]) for i, c in enumerate(cids)},
                 float(weights.sum()))
+
+    # ----- sequential escape hatch (deadline / straggler / async path) -----
+
+    def _seq_train(self, tier: Optional[str]):
+        fn = self._seq_fns.get(tier)
+        if fn is None:
+            fn = self._seq_fns[tier] = make_local_train(
+                self._group_loss_fn(tier), self.optimizer,
+                clip_norm=self.clip_norm, compute_dtype=self.compute_dtype)
+        return fn
+
+    def _seq_compress(self, params, p_i, cid: int):
+        """One client's update through ``ingraph_compress_leaf`` alone (K =
+        1, weight 1, its own residual row): the fused round's compression
+        math, so both paths send the same entries."""
+        leaves = tree_leaves(params)
+        self._residual_rows([cid], leaves)
+        row = self._res_row[cid]
+        one = torch.ones(1, dtype=torch.float32, device=self.device)
+        new_p = []
+        with torch.no_grad():
+            for p0, pi, pool in zip(leaves, tree_leaves(p_i), self._res_pool):
+                sent, r_new, _, _ = ingraph_compress_leaf(
+                    p0.float().reshape(-1), pi.float().reshape(1, -1),
+                    pool[row][None, :], one, self.compress_ratio)
+                new_p.append(sent.reshape(p0.shape).to(p0.dtype))
+                pool[row] = r_new[0]
+        return tree_unflatten(params, new_p)
+
+    def _run_sequential(self, clients, cids, params, state, round_idx, *,
+                        tier):
+        """Each client trains alone from the round-start params with a
+        fresh optimizer state on its own batch plan; its losses come back
+        in one read and average in f64, as the reference's per-step reads
+        do. The group combines by the Eq. 1 weighted average."""
+        train = self._seq_train(tier)
+        frozen = ({} if tier is not None else
+                  (self.frozen if self.frozen is not None else {}))
+        updates, weights, losses = [], [], {}
+        for cid in cids:
+            c = clients[cid]
+            plan = batch_index_plan(c.num_samples, self.batch_size,
+                                    self.local_epochs,
+                                    c.round_seed(round_idx))
+            p_i, s_i, step_losses = train(params, frozen, state,
+                                          self._client_batches(c, plan, tier))
+            if self.compress_ratio is not None:
+                p_i = self._seq_compress(params, p_i, cid)
+            l_host = (torch.stack(step_losses).cpu().numpy()
+                      if step_losses else np.zeros(1))
+            losses[cid] = float(np.mean(l_host, dtype=np.float64))
+            updates.append((p_i, s_i))
+            weights.append(c.num_samples)
+        self.last_uplink_bytes += self._uplink_bytes(params, len(cids))
+        w = np.asarray(weights, np.float64)
+        w = w / w.sum()
+        return (weighted_avg([u[0] for u in updates], w),
+                weighted_avg([u[1] for u in updates], w), losses,
+                float(np.sum(weights)))

@@ -1,4 +1,4 @@
-"""SmartFreeze server for the CNN testbed, sync path (counterpart of
+"""SmartFreeze server for the CNN testbed (counterpart of
 ``repro/fl/server.py:SmartFreezeServer``).
 
 ``run`` executes the paper's pipeline end to end:
@@ -16,12 +16,15 @@ ladder over ``cache_tiers`` (f32 -> fp16 -> int8 with ``"all"``), and
 ``compute_dtype="bfloat16"`` trains every stage's clients in bf16 with f32
 master weights (``fl/engine.py``, ``fl/quant.py``).
 
+Rounds run under the sync, deadline (``deadline_factor > 0``, or
+``aggregation="deadline"``) or async-buffered policy (``fl/sim.py``),
+over an optional ``AvailabilityTrace``; ``fused=False`` sends every round
+to the engine's sequential escape hatch.
+
 Not ported in this slice, and rejected with ``TypeError`` rather than
 ignored: ``mesh``, ``faults``, ``screen_updates``, ``aggregator``,
-``freeze_rollback`` (and its knobs), the deadline and async policies
-(``deadline_factor``, ``aggregation`` other than sync), ``availability``,
-``fused`` and ``use_pallas``, and ``run``'s ``ckpt_manager`` and
-``resume``. The compressed fold always goes through
+``freeze_rollback`` (and its knobs) and ``use_pallas``, and ``run``'s
+``ckpt_manager`` and ``resume``. The compressed fold always goes through
 ``kernels.ops.sparse_cohort_add``: a CUDA launch on the card, the plain
 version on the CPU.
 """
@@ -41,12 +44,15 @@ from repro_torch.core.memory_model import (CACHE_TIER_DTYPES, CACHE_TIERS,
                                            cache_tier_ladder,
                                            cnn_stage_memory_bytes)
 from repro_torch.core.pace import PaceController
-from repro_torch.core.selector import ParticipantSelector
+from repro_torch.core.selector import (InfeasibleStageError,
+                                       ParticipantSelector)
 from repro_torch.core.selector.similarity import similarity_matrix
 from repro_torch.core.time_model import cnn_cached_compute_scale
 from repro_torch.fl.client import SimClient
 from repro_torch.fl.engine import RoundEngine
-from repro_torch.fl.sim import FederatedLoop, FleetTimeModel, resolve_policy
+from repro_torch.fl.sim import (AvailabilityTrace, DeadlineAggregation,
+                                FederatedLoop, FleetTimeModel,
+                                SyncAggregation, resolve_policy)
 from repro_torch.models.cnn import CNN
 from repro_torch.models.module import tree_leaves
 from repro_torch.optim import Optimizer, sgd
@@ -66,6 +72,7 @@ class RoundResult:
     uplink_bytes: Optional[int] = None   # cohort uplink payload this round
     duration: Optional[float] = None     # virtual seconds this round took
     virtual_time: Optional[float] = None  # virtual clock at round end
+    dropped: List[int] = field(default_factory=list)  # late / dropout / retry
     cache_bytes: Optional[int] = None    # resident feature cache
 
 
@@ -96,13 +103,15 @@ class SmartFreezeServer:
                  pace_kwargs: Optional[dict] = None,
                  op_kind: str = "conv",
                  selector: Optional[ParticipantSelector] = None,
-                 seed: int = 0, cache_features: bool = True,
+                 deadline_factor: float = 0.0, seed: int = 0,
+                 fused: bool = True, cache_features: bool = True,
                  cache_tiers: Union[str, tuple, list] = ("f32",),
                  compute_dtype: Optional[str] = None,
                  cache_time_scale: bool = False,
                  compress_ratio: Optional[float] = None,
                  aggregation: Union[str, object, None] = None,
                  time_model: Optional[FleetTimeModel] = None,
+                 availability: Optional[AvailabilityTrace] = None,
                  device="cuda"):
         # admission ladder, most exact first; "all" is f32 -> fp16 -> int8
         self.cache_tiers = (CACHE_TIERS if cache_tiers == "all"
@@ -123,16 +132,27 @@ class SmartFreezeServer:
         self.pace_kwargs = pace_kwargs or {}
         self.op_kind = op_kind
         self.selector = selector or ParticipantSelector(seed=seed)
+        self.deadline_factor = deadline_factor  # > 0: drop late stragglers
         self.seed = seed
+        self.fused = fused
         self.cache_features = cache_features
         self.cache_time_scale = cache_time_scale
         self.compress_ratio = compress_ratio
-        self.policy = resolve_policy(aggregation or "sync")
+        self.aggregation = aggregation
+        self.policy = self._policy()
         self.time_model = time_model
+        self.availability = availability
         self.history: List[RoundResult] = []
         self.cache_tier_plan: Dict[int, Optional[str]] = {}  # current stage
         self._last_loss: Dict[int, float] = {}
         self.image_size = int(next(iter(self.clients.values())).data["x"].shape[1])
+
+    def _policy(self):
+        if self.aggregation is not None:
+            return resolve_policy(self.aggregation)
+        if self.deadline_factor > 0:
+            return DeadlineAggregation(factor=self.deadline_factor)
+        return SyncAggregation()
 
     # ----- bootstrap: similarity from output-layer gradients (Eq. 8) -----
 
@@ -167,7 +187,8 @@ class SmartFreezeServer:
             optimizer=self.optimizer_fn(), frozen=frozen,
             cached_loss_fn=cached_loss, feature_fn=feature_fn,
             batch_size=self.batch_size, local_epochs=self.local_epochs,
-            clip_norm=10.0, compress_ratio=self.compress_ratio,
+            clip_norm=10.0, fused=self.fused,
+            compress_ratio=self.compress_ratio,
             compute_dtype=self.compute_dtype, device=self.device)
 
     def _cache_plan(self, stage: int) -> Dict[int, Optional[str]]:
@@ -230,18 +251,35 @@ class SmartFreezeServer:
                     loss_sum=(self._last_loss.get(cid, 1e3)
                               * self.clients[cid].num_samples))
                     for cid in avail}
-                # Eq. 11-14: I_{t,i} = |D_i| * latest local loss
-                return self.selector.select(infos, self.k,
-                                            mem_required=mem_req,
-                                            stage_time_fn=time_fn)
+                try:
+                    # Eq. 11-14: I_{t,i} = |D_i| * latest local loss
+                    return self.selector.select(infos, self.k,
+                                                mem_required=mem_req,
+                                                stage_time_fn=time_fn)
+                except InfeasibleStageError:
+                    if len(avail) < len(self.clients):
+                        # an availability dip, not a memory-infeasible
+                        # stage: skip the round (0.0 virtual seconds)
+                        return []
+                    raise
 
-            def train_fn(cohort, r):
+            def train_fn(cohort, r, sequential=None):
                 box["active"], box["state"], losses = engine.run_round(
                     self.clients, cohort, box["active"], box["state"], r,
-                    use_cache=cache_ok)
+                    use_cache=cache_ok, sequential=sequential)
                 self._last_loss.update(
                     {c: v for c, v in losses.items() if np.isfinite(v)})
                 return losses
+
+            def train_one_fn(cid, p, s, r):
+                p_i, s_i, losses = engine.run_round(
+                    self.clients, [cid], p, s, r, use_cache=cache_ok,
+                    sequential=True)
+                self._last_loss.update(losses)
+                return p_i, s_i, losses[cid]
+
+            def set_model_fn(p, s):
+                box["active"], box["state"] = p, s
 
             def on_round(rec):
                 p = pace.observe(box["active"].get("stages", box["active"]))
@@ -254,6 +292,7 @@ class SmartFreezeServer:
                                  uplink_bytes=engine.last_uplink_bytes,
                                  duration=rec.duration,
                                  virtual_time=rec.t_end,
+                                 dropped=rec.dropped,
                                  cache_bytes=engine.cache_nbytes())
                 if eval_fn is not None and (rec.round_idx % eval_every == 0
                                             or do_freeze):
@@ -274,11 +313,15 @@ class SmartFreezeServer:
                             for cid, t in cache_ok.items() if t}
                 if scale_of:
                     tm = tm.with_compute_scale(scale_of)
-            loop = FederatedLoop(select_fn=select_fn, train_fn=train_fn,
-                                 clients=self.clients,
-                                 client_ids=list(self.clients),
-                                 aggregation=self.policy, time_model=tm,
-                                 on_round=on_round, clock=clock)
+            loop = FederatedLoop(
+                select_fn=select_fn, train_fn=train_fn, clients=self.clients,
+                client_ids=list(self.clients), aggregation=self.policy,
+                time_model=tm, availability=self.availability,
+                on_round=on_round,
+                snapshot_fn=lambda: (box["active"], box["state"]),
+                train_one_fn=train_one_fn,
+                get_model_fn=lambda: (box["active"], box["state"]),
+                set_model_fn=set_model_fn, clock=clock)
             done = loop.run(max(min(plan_rounds, budget - round_idx), 0),
                             start_round=round_idx)
             round_idx += len(done)

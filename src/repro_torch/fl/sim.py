@@ -1,24 +1,39 @@
-"""Virtual-time federated simulation loop, sync policy (counterpart of
-``repro/fl/sim.py``'s ``FleetTimeModel``, ``RoundRecord``,
-``SyncAggregation`` and ``FederatedLoop``; numpy).
+"""Virtual-time federated simulation loop (counterpart of
+``repro/fl/sim.py``'s ``FleetTimeModel``, ``AvailabilityTrace``,
+``RoundRecord``, the three aggregation policies and ``FederatedLoop``;
+numpy on the host, model trees on the trainer's device).
 
 ``FederatedLoop`` replays selection -> local training -> aggregation ->
-observation once per virtual tick. ``SyncAggregation`` is the Eq. 7
-barrier: a round lasts as long as its slowest selected client. The
-deadline and async policies, availability traces and fault injection are
-not ported; ``resolve_policy`` accepts ``"sync"`` only.
+observation once per virtual tick, and the policy drives it:
+
+  * ``SyncAggregation``: the Eq. 7 barrier; a round lasts as long as its
+    slowest surviving client.
+  * ``DeadlineAggregation``: the paper's partial aggregation (§IV-C);
+    clients finishing after T_dl are dropped, and straggler rounds run the
+    engine's sequential escape hatch.
+  * ``AsyncBufferedAggregation``: FedBuff-style buffered async; clients
+    train from the params version they were dispatched at, and every
+    ``buffer_size`` completions merge with staleness-discounted Eq. 1
+    weights; a virtual-clock watchdog re-dispatches slow clients.
+
+``AvailabilityTrace`` draws per-(client, round) availability and mid-round
+dropout with the reference's splitmix64 hash, bit for bit. Fault injection
+is not ported: ``FederatedLoop`` takes no ``faults`` and no ``mesh``.
 """
 from __future__ import annotations
 
 import dataclasses
+import heapq
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 
 from repro_torch.core.time_model import (cohort_round_time, completion_jitter,
                                          completion_times, stage_times,
                                          uplink_times)
+from repro_torch.models.module import tree_map
 
 
 @dataclass
@@ -101,39 +116,283 @@ class FleetTimeModel:
         return {int(c): float(t[self._row[int(c)]]) for c in cohort}
 
 
+def _hash_draws(seed: int, round_idx: int, ids: Sequence[int]) -> np.ndarray:
+    """One deterministic uniform per (seed, round, client): a splitmix64
+    hash of the three, independent of cohort order and of which other
+    clients are queried (``repro/fl/faults.py:hash_draws``, bit for bit)."""
+    c1 = np.uint64(0x9E3779B97F4A7C15)
+    c2 = np.uint64(0xBF58476D1CE4E5B9)
+    c3 = np.uint64(0x94D049BB133111EB)
+    with np.errstate(over="ignore"):   # uint64 wraparound is the hash
+        x = (np.asarray(ids, np.uint64) * c1
+             + np.uint64(round_idx % (1 << 63)) * c2
+             + np.uint64(seed % (1 << 63)) * c3)
+        x ^= x >> np.uint64(30)
+        x *= c2
+        x ^= x >> np.uint64(27)
+        x *= c3
+        x ^= x >> np.uint64(31)
+    return (x >> np.uint64(11)).astype(np.float64) / float(1 << 53)
+
+
+@dataclass
+class AvailabilityTrace:
+    """Client availability and mid-round dropout, seeded per (client,
+    round). ``p_available`` gates whether a client can be selected this
+    round; ``p_dropout`` kills a selected client mid-round (its update
+    never reaches the server)."""
+
+    p_available: float = 1.0
+    p_dropout: float = 0.0
+    seed: int = 0
+
+    def available(self, ids: Sequence[int], round_idx: int) -> List[int]:
+        ids = list(ids)
+        if self.p_available >= 1.0 or not ids:
+            return ids
+        u = _hash_draws(self.seed, round_idx, ids)
+        return [c for c, ui in zip(ids, u) if ui < self.p_available]
+
+    def dropouts(self, cohort: Sequence[int], round_idx: int) -> List[int]:
+        cohort = list(cohort)
+        if self.p_dropout <= 0.0 or not cohort:
+            return []
+        u = _hash_draws(self.seed + 1, round_idx, cohort)
+        return [c for c, ui in zip(cohort, u) if ui < self.p_dropout]
+
+
 @dataclass
 class RoundRecord:
     """What one virtual tick did."""
     round_idx: int
     selected: List[int]                    # clients whose updates aggregated
     losses: Dict[int, float]
+    dropped: List[int] = field(default_factory=list)   # late, dropout, retry
     t_start: float = 0.0
     duration: float = 0.0
     t_end: float = 0.0
+    policy: str = "sync"
+    sequential: bool = False
+    staleness: Dict[int, int] = field(default_factory=dict)  # async only
+    retries: Dict[int, int] = field(default_factory=dict)    # async retries
 
 
 class SyncAggregation:
     """Eq. 7 barrier: everyone selected trains; the round lasts as long as
-    the slowest of them."""
+    the slowest surviving client. A dropped client's update never arrives
+    and costs the barrier nothing."""
+
+    name = "sync"
 
     def tick(self, loop: "FederatedLoop", r: int) -> RoundRecord:
-        cohort = loop.select_fn(r, list(loop.client_ids))
-        times = loop.times(cohort, r)
-        losses = loop.train_fn(cohort, r) if cohort else {}
+        avail = loop.available(r)
+        sel = loop.select_fn(r, avail) if avail else []
+        dropped = loop.dropouts(sel, r)
+        cohort = [c for c in sel if c not in set(dropped)]
+        times = loop.times(sel, r)
+        losses, _ = loop.run_train(cohort, r)
         dur = cohort_round_time([times[c] for c in cohort])
-        return RoundRecord(r, list(cohort), losses, t_start=loop.clock,
-                           duration=dur, t_end=loop.clock + dur)
+        return RoundRecord(r, cohort, losses, dropped=dropped,
+                           t_start=loop.clock, duration=dur,
+                           t_end=loop.clock + dur, policy=self.name)
+
+
+@dataclass
+class DeadlineAggregation:
+    """Paper §IV-C straggler mitigation: partial aggregation over the
+    clients that finish before T_dl. The relative deadline ``factor *
+    median(times)`` applies only to cohorts of more than 2, and its trim
+    only when at least ``max(min_keep, len(cohort) // 2)`` clients finish;
+    ``deadline_s`` is an absolute deadline for any cohort size, which may
+    leave nobody. Straggler rounds run the engine's sequential escape
+    hatch (``sequential=True``)."""
+
+    factor: float = 2.0
+    deadline_s: Optional[float] = None
+    min_keep: int = 2
+    name: str = "deadline"
+    sequential: bool = True
+
+    def tick(self, loop: "FederatedLoop", r: int) -> RoundRecord:
+        avail = loop.available(r)
+        sel = loop.select_fn(r, avail) if avail else []
+        times = loop.times(sel, r)
+        kept, straggler_round = list(sel), False
+        deadline = self.deadline_s
+        if deadline is not None and sel:
+            straggler_round = True
+            kept = [c for c in sel if times[c] <= deadline]
+        elif len(sel) > 2:
+            straggler_round = True
+            deadline = float(np.median([times[c] for c in sel])) * self.factor
+            finishers = [c for c in sel if times[c] <= deadline]
+            if len(finishers) >= max(self.min_keep, len(sel) // 2):
+                kept = finishers
+        dropped = loop.dropouts(kept, r)
+        cohort = [c for c in kept if c not in set(dropped)]
+        seq = True if (straggler_round and self.sequential) else None
+        losses, _ = loop.run_train(cohort, r, sequential=seq)
+        late = [c for c in sel if c not in set(kept)]
+        if late:  # the server waited until the deadline before aggregating
+            dur = float(deadline)
+        else:
+            dur = cohort_round_time([times[c] for c in cohort])
+        return RoundRecord(r, cohort, losses, dropped=late + dropped,
+                           t_start=loop.clock, duration=dur,
+                           t_end=loop.clock + dur, policy=self.name,
+                           sequential=bool(seq))
+
+
+@dataclass
+class AsyncBufferedAggregation:
+    """FedBuff-style buffered asynchronous aggregation.
+
+    The server keeps up to ``concurrency`` clients in flight, each training
+    from the params version it was dispatched at. One tick is one
+    aggregation event: pop completions in virtual-time order until
+    ``buffer_size`` updates are buffered, then apply
+
+        params += sum_i w_i * (theta_i - theta_{dispatch(i)}) / sum_i w_i,
+        w_i = |D_i| * (1 + staleness_i) ** -staleness_power
+
+    and bump the version. The loop's ``snapshot_fn``, ``train_one_fn``,
+    ``get_model_fn`` and ``set_model_fn`` hooks are required. A dispatch
+    keeps references to the model trees it started from, so the trainer
+    must never write into a tree in place.
+
+    ``timeout_s`` arms a virtual-clock watchdog per dispatch: a client
+    whose completion has not landed by ``t_dispatch + timeout_s *
+    retry_backoff ** attempt`` is abandoned and re-dispatched from the
+    current model, up to ``max_retries`` times, then dropped. The event
+    budget bounds a tick's pops, so a retry storm ends."""
+
+    buffer_size: int = 4
+    concurrency: int = 8
+    staleness_power: float = 0.5
+    timeout_s: Optional[float] = None
+    max_retries: int = 2
+    retry_backoff: float = 2.0
+    name: str = "async"
+
+    def tick(self, loop: "FederatedLoop", r: int) -> RoundRecord:
+        if loop.train_one_fn is None or loop.set_model_fn is None:
+            raise ValueError(f"{self.name} aggregation needs the loop's "
+                             "snapshot/train_one/get_model/set_model hooks")
+        st = loop.async_state
+        t0 = loop.clock
+        self._refill(loop, r, t0)
+        merged: List[Tuple] = []
+        completed: List[int] = []
+        losses: Dict[int, float] = {}
+        staleness: Dict[int, int] = {}
+        dropped: List[int] = []
+        retries: Dict[int, int] = {}
+        clock = t0
+        events = 0
+        max_events = max(64, 16 * self.buffer_size
+                         + 4 * self.concurrency * (self.max_retries + 1))
+        while (len(merged) < self.buffer_size and st["in_flight"]
+               and events < max_events):
+            events += 1
+            # (key, seq) is unique, so the heap never compares the trees
+            key, _, cid, base_p, base_s, v0, attempt, t_fin = heapq.heappop(
+                st["in_flight"])
+            if key < t_fin:
+                # the watchdog fired before the completion: abandon it
+                clock = max(clock, key)
+                if attempt < self.max_retries:
+                    retries[cid] = retries.get(cid, 0) + 1
+                    self._dispatch(loop, r, cid, clock, attempt=attempt + 1)
+                else:
+                    dropped.append(cid)
+                    self._refill(loop, r, clock)
+                continue
+            clock = max(clock, t_fin)
+            p_i, s_i, loss = loop.train_one_fn(cid, base_p, base_s, r)
+            stale = st["version"] - v0
+            w = (loop.client_weight(cid)
+                 * (1.0 + stale) ** -self.staleness_power)
+            delta = tree_map(lambda a, b: a.float() - b.float(), p_i, base_p)
+            merged.append((delta, s_i, w))
+            completed.append(cid)
+            losses[cid] = loss
+            staleness[cid] = stale
+            # backfill the freed slot at the completion time
+            self._refill(loop, r, clock)
+        if merged:
+            params, state = loop.get_model_fn()
+            wsum = sum(w for _, _, w in merged)
+            agg_delta = agg_state = None
+            for delta, s_i, w in merged:
+                # an f32 tensor times a Python float stays f32
+                scaled = tree_map(lambda d: (w / wsum) * d, delta)
+                ssc = tree_map(lambda s: (w / wsum) * s.float(), s_i)
+                agg_delta = scaled if agg_delta is None else tree_map(
+                    lambda a, b: a + b, agg_delta, scaled)
+                agg_state = ssc if agg_state is None else tree_map(
+                    lambda a, b: a + b, agg_state, ssc)
+            new_p = tree_map(lambda p, d: (p.float() + d).to(p.dtype),
+                             params, agg_delta)
+            new_s = tree_map(lambda s, a: a.to(s.dtype), state, agg_state)
+            loop.set_model_fn(new_p, new_s)
+            st["version"] += 1
+        return RoundRecord(r, completed, losses, dropped=dropped,
+                           t_start=t0, duration=clock - t0, t_end=clock,
+                           policy=self.name, staleness=staleness,
+                           retries=retries)
+
+    def _dispatch(self, loop: "FederatedLoop", r: int, cid: int, now: float,
+                  *, attempt: int = 0, times: Optional[Dict] = None,
+                  base=None):
+        """Push one in-flight entry, keyed by the earlier of its completion
+        and its watchdog deadline."""
+        st = loop.async_state
+        if times is None:
+            times = loop.times([cid], r)
+        if base is None:
+            base = loop.snapshot_fn()
+        t_fin = now + times[cid]
+        key = t_fin
+        if self.timeout_s is not None:
+            key = min(t_fin, now + self.timeout_s
+                      * self.retry_backoff ** attempt)
+        st["seq"] += 1
+        heapq.heappush(st["in_flight"],
+                       (key, st["seq"], cid, base[0], base[1],
+                        st["version"], attempt, t_fin))
+
+    def _refill(self, loop: "FederatedLoop", r: int, now: float):
+        st = loop.async_state
+        while len(st["in_flight"]) < self.concurrency:
+            busy = {e[2] for e in st["in_flight"]}
+            avail = [c for c in loop.available(r) if c not in busy]
+            if not avail:
+                return
+            sel = [c for c in loop.select_fn(r, avail) if c not in busy]
+            sel = sel[:self.concurrency - len(st["in_flight"])]
+            if not sel:
+                return
+            times = loop.times(sel, r)
+            base = loop.snapshot_fn()
+            for cid in sel:
+                self._dispatch(loop, r, cid, now, times=times, base=base)
+
+
+_POLICIES = {"sync": SyncAggregation, "deadline": DeadlineAggregation,
+             "async": AsyncBufferedAggregation,
+             "async-buffered": AsyncBufferedAggregation}
 
 
 def resolve_policy(policy) -> Any:
-    """'sync' | a ``SyncAggregation`` -> policy instance. The deadline and
-    async policies are not ported."""
-    if isinstance(policy, SyncAggregation):
-        return policy
-    if policy == "sync":
-        return SyncAggregation()
-    raise ValueError(f"aggregation policy {policy!r} is not ported; "
-                     "only 'sync'")
+    """'sync' | 'deadline' | 'async' | 'async-buffered' | a policy
+    instance -> policy instance."""
+    if isinstance(policy, str):
+        try:
+            return _POLICIES[policy]()
+        except KeyError:
+            raise ValueError(f"unknown aggregation policy {policy!r}; "
+                             f"choose from {sorted(set(_POLICIES))}")
+    return policy
 
 
 @dataclass
@@ -143,12 +402,20 @@ class FederatedLoop:
     Hooks (closures over the trainer's own model state):
 
       select_fn(round_idx, available_ids) -> cohort ids
-      train_fn(cohort, round_idx) -> {cid: mean loss}; runs the round and
-          applies the aggregate to the trainer's model
+      train_fn(cohort, round_idx, *, sequential=None) -> {cid: mean loss};
+          runs the round and applies the aggregate to the trainer's model;
+          ``sequential`` forwards the deadline policy's escape hatch
       on_round(RoundRecord) -> truthy to stop (pace freeze, budget, ...)
 
+    Async hooks (``AsyncBufferedAggregation`` only):
+
+      snapshot_fn() -> (params, state), the current model's trees
+      train_one_fn(cid, params, state, round_idx) -> (params_i, state_i, loss)
+      get_model_fn() -> (params, state); set_model_fn(params, state)
+
     ``time_model=None`` builds the default ``|D_i| / c_i`` model from the
-    fleet, or zero times with no fleet.
+    fleet, or zero times with no fleet; ``availability=None`` makes every
+    client available and drops nobody.
     """
 
     select_fn: Callable[[int, List[int]], List[int]] = None
@@ -157,9 +424,16 @@ class FederatedLoop:
     client_ids: Optional[List[int]] = None
     aggregation: Union[str, Any] = "sync"
     time_model: Optional[FleetTimeModel] = None
+    availability: Optional[AvailabilityTrace] = None
     on_round: Optional[Callable[[RoundRecord], Optional[bool]]] = None
+    snapshot_fn: Optional[Callable] = None
+    train_one_fn: Optional[Callable] = None
+    get_model_fn: Optional[Callable] = None
+    set_model_fn: Optional[Callable] = None
     clock: float = 0.0
     history: List[RoundRecord] = field(default_factory=list)
+    async_state: Dict = field(default_factory=lambda: {
+        "in_flight": [], "version": 0, "seq": 0})
 
     def __post_init__(self):
         self.aggregation = resolve_policy(self.aggregation)
@@ -168,10 +442,35 @@ class FederatedLoop:
         if self.time_model is None and self.clients:
             self.time_model = FleetTimeModel.from_clients(self.clients)
 
+    def available(self, round_idx: int) -> List[int]:
+        if self.availability is None:
+            return list(self.client_ids)
+        return self.availability.available(self.client_ids, round_idx)
+
+    def dropouts(self, cohort: Sequence[int], round_idx: int) -> List[int]:
+        if self.availability is None:
+            return []
+        return self.availability.dropouts(cohort, round_idx)
+
     def times(self, cohort: Sequence[int], round_idx: int) -> Dict[int, float]:
         if self.time_model is None:
             return {int(c): 0.0 for c in cohort}
         return self.time_model.cohort_times(cohort, round_idx)
+
+    def client_weight(self, cid: int) -> float:
+        if self.clients and cid in self.clients:
+            return float(self.clients[cid].num_samples)
+        return 1.0
+
+    def run_train(self, cohort: Sequence[int], round_idx: int, **kw
+                  ) -> Tuple[Dict[int, float], List[int]]:
+        """Train ``cohort`` through ``train_fn``, forwarding ``kw``
+        (``sequential``). Returns ({cid: loss}, crashed); without fault
+        injection nobody crashes and an empty cohort trains nothing."""
+        cohort = list(cohort)
+        if not cohort:
+            return {}, []
+        return self.train_fn(cohort, round_idx, **kw), []
 
     def run(self, n_rounds: int, *, start_round: int = 0) -> List[RoundRecord]:
         """Run ``n_rounds`` ticks with global indices from ``start_round``

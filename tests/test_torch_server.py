@@ -128,9 +128,6 @@ def test_two_stage_trajectory_matches_reference(monkeypatch):
                                     dict(aggregator="mean"),
                                     dict(freeze_rollback=True),
                                     dict(rollback_guard=0.5),
-                                    dict(fused=True),
-                                    dict(deadline_factor=2.0),
-                                    dict(availability=None),
                                     dict(use_pallas=True)])
 def test_unported_server_arguments_raise(kwargs):
     tt, tp = _data(TVision, t_dirichlet)
@@ -144,9 +141,9 @@ def test_unported_policies_and_run_arguments_raise():
     tt, tp = _data(TVision, t_dirichlet)
     fleet = t_fleet(tt, tp, scenario="low", seed=0)
     model = TCNN(TCfg(**CFG), device="cpu")
-    for policy in ("deadline", "async"):
-        with pytest.raises(ValueError, match="not ported"):
-            TServer(model, fleet, device="cpu", aggregation=policy)
+    with pytest.raises(ValueError, match="choose from .*'async-buffered'.*"
+                       "'deadline'.*'sync'"):
+        TServer(model, fleet, device="cpu", aggregation="fedbuff")
     srv = TServer(model, fleet, device="cpu")
     for kw in (dict(ckpt_manager=None), dict(resume=True)):
         with pytest.raises(TypeError):
@@ -155,8 +152,8 @@ def test_unported_policies_and_run_arguments_raise():
 
 def test_port_imports_without_jax_or_reference():
     """Every module of the port imports with JAX and the JAX package
-    blocked, the LM, serving, hybrid, B3 and tier slices' modules among
-    them, and registering the ported configs pulls in nothing of either;
+    blocked, the LM, serving, hybrid, B3, tier and policy slices' modules
+    among them, and registering the ported configs pulls in nothing of either;
     chip_smoke.py imports neither."""
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -173,7 +170,8 @@ def test_port_imports_without_jax_or_reference():
             "'repro_torch.launch.serve', 'repro_torch.configs.zamba2_7b', "
             "'repro_torch.models.ssm', 'repro_torch.kernels.ssm_scan', "
             "'repro_torch.kernels.block_perturb', 'repro_torch.core.pace', "
-            "'repro_torch.fl.quant', 'repro_torch.kernels.dequant_matmul'):\n"
+            "'repro_torch.fl.quant', 'repro_torch.kernels.dequant_matmul', "
+            "'repro_torch.fl.sim', 'repro_torch.fl.engine'):\n"
             "    assert n in names, n\n"
             "from repro_torch import configs\n"
             "assert configs.names() == ['deepseek-coder-33b', 'llama3-8b', "
