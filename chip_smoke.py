@@ -38,6 +38,18 @@ Phases, each of which exits non-zero on failure:
  6c. check the card's deadline and async runs against the port's CPU path
      on the small model: the loop's records equal, losses and params
      allclose;
+ 6d. drive the paper's baselines on full-width ResNet-18 (phase 4's fleet,
+     cohort, batch, ratio and SGD, two rounds a run): AllSmall, HeteroFL
+     and DepthFL under Table 1's memory rule, where ExclusiveFL, TiFL and
+     Oort must be inoperative; ExclusiveFL, TiFL, Oort and
+     ``FedAvgServer`` on the fleet's own memory, ``FedAvgServer`` also with
+     ``fused=False`` and under the deadline policy; B1's count held against
+     each run's rounds, one K = 1 fold of the path equal to its plain
+     version bit for bit, one cohort fold within B1's tolerance; a
+     profiled ExclusiveFL round;
+ 6e. check the six baselines on the card against the port's CPU path at
+     Table 1's configuration, then run Table 1's 12 rounds on the card and
+     print its accuracy row;
   7. hold the flash attention kernel (B4) against its plain version at the
      Llama-3-8B training shape and its variants (Zamba2-7B's head dim 112,
      hubert-xlarge's 80, the run-time widths 96, 256 and dk 192 with dv
@@ -842,8 +854,12 @@ class _ticks:
 
 class _first_single_fold:
     """Inside the ``with``, keeps a copy of the inputs and the output of
-    the first B1 launch that folds one client (K = 1) at the largest leaf
-    length seen; the launch itself is the path's own and counts once."""
+    the B1 launch that folds one client (K = 1; with ``cohort=True``, more
+    than one) at the largest leaf length seen, the first such; the launch
+    itself is the path's own and counts once."""
+
+    def __init__(self, cohort=False):
+        self.cohort = cohort
 
     def __enter__(self):
         from repro_torch.kernels import sparse_agg
@@ -852,7 +868,8 @@ class _first_single_fold:
 
         def keep(idx, vals, weights, length):
             out = self.fn(idx, vals, weights, length)
-            if idx.shape[0] == 1 and length > kept.get("L", 0):
+            if ((idx.shape[0] > 1) == self.cohort
+                    and length > kept.get("L", 0)):
                 kept.update(L=length, idx=idx.clone(), vals=vals.clone(),
                             w=weights.clone(), out=out.clone())
             return out
@@ -1159,6 +1176,360 @@ def phase_small_policies_reference():
                                        **POLICY_TOL)
         print(f"small model, {name}: card == CPU path, records "
               f"{[(r.selected, r.dropped, r.staleness, r.retries, r.sequential) for r in g_recs]}")
+
+
+TABLE1_MEMORY = ([0.35, 0.5, 0.7, 0.9], [0.3, 0.3, 0.25, 0.15])
+BASELINE_PROFILE_SAMPLES = 160
+
+
+def _table1_memory(clients, full_mem):
+    """``benchmarks/run.py:tab1_fl_accuracy``'s memory rule: each client
+    holds ``full_mem`` times one of {0.35, 0.5, 0.7, 0.9}, drawn with
+    ``RandomState(7)``, so that no client holds the full model."""
+    import dataclasses
+    import numpy as np
+    rng = np.random.RandomState(7)
+    return [dataclasses.replace(c, memory_bytes=full_mem * rng.choice(
+        TABLE1_MEMORY[0], p=TABLE1_MEMORY[1])) for c in clients]
+
+
+class _uplinks:
+    """Inside the ``with``, the uplink bytes each round index sent,
+    summed over the ``RoundEngine.run_round`` calls of that round (one a
+    depth or scale group in DepthFL and HeteroFL)."""
+
+    def __enter__(self):
+        from repro_torch.fl import engine
+        self.cls, self.fn = engine.RoundEngine, engine.RoundEngine.run_round
+        log = {}
+
+        def run_round(eng, clients, selected, params, state, round_idx, **kw):
+            out = self.fn(eng, clients, selected, params, state, round_idx,
+                          **kw)
+            log[round_idx] = log.get(round_idx, 0) + eng.last_uplink_bytes
+            return out
+        self.cls.run_round = run_round
+        return log
+
+    def __exit__(self, *exc):
+        self.cls.run_round = self.fn
+
+
+def _expected_baseline_folds(ticks, leaves, group_of=None, sequential=False):
+    """B1 launches a baseline run's ticks imply: a fused round folds once a
+    leaf for each engine group (depth group in DepthFL, scale group in
+    HeteroFL, else one), a sequential round once a leaf for each client
+    trained. Every group's trained tree has ``leaves`` leaves."""
+    n = 0
+    for rec, _, _ in ticks:
+        if sequential or rec.sequential:
+            n += leaves * len(rec.selected)
+        elif rec.selected:
+            n += leaves * len({(group_of or {}).get(c) for c in rec.selected})
+    return n
+
+
+def phase_baselines(card):
+    """The paper's baselines on full-width ResNet-18 (``phase_main_path``'s
+    fleet, cohort, batch, top-k ratio and SGD, two rounds a run), over two
+    fleets:
+
+      A. Table 1's memory rule on this model's ``full_model_memory``
+         (``_table1_memory``): nobody holds the full model, so AllSmall
+         scales it down, HeteroFL splits the cohort into scale groups,
+         DepthFL into depth groups, and ExclusiveFL, TiFL and Oort are
+         inoperative;
+      B. the fleet's own 2-8 GiB: ExclusiveFL, TiFL (one tier a round),
+         Oort and ``FedAvgServer`` under sync; ``FedAvgServer`` also with
+         ``fused=False`` and under ``DeadlineAggregation(factor=1.5)`` over
+         ``phase_policies``' straggler fleet and time model.
+
+    Each run prints its round walls (host clock, a synchronize on each
+    side), losses, participation, uplink bytes, virtual time and peak
+    device memory; B1's count is set to 0 before it and held after against
+    the rounds (``_expected_baseline_folds``). One K = 1 fold of the path
+    equals its plain version bit for bit, and one cohort fold holds it by
+    ``phase_sparse_agg``'s tolerance. Then one ExclusiveFL round over the
+    cohort's shards cut to ``BASELINE_PROFILE_SAMPLES`` is profiled."""
+    import collections
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.fl import baselines as B
+    from repro_torch.fl.server import FedAvgServer
+    from repro_torch.fl.sim import (DeadlineAggregation, FleetTimeModel,
+                                    SyncAggregation)
+    from repro_torch.kernels import ref, sparse_agg
+    from repro_torch.models.cnn import CNN, RESNET18
+    from repro_torch.models.module import tree_leaves
+    clients, _ = _fleet(10_000, 20, 32, 10)
+    model = CNN(RESNET18, device="cuda")
+    full_mem = B.full_model_memory(model, 32)
+    fleet_a = _table1_memory(clients, full_mem)
+    stragglers = [dataclasses.replace(
+        c, capability=0.05e9 if c.client_id % 4 == 0 else 1e9)
+        for c in clients]
+    depths = B.depthfl_depths(model, fleet_a, 32)
+    scales = B.heterofl_scales(RESNET18, fleet_a, 32)
+    mults = [round(float(c.memory_bytes / full_mem), 2) for c in fleet_a]
+    print(f"baselines: full_model_memory {full_mem!r} bytes at batch 32; "
+          f"fleet A memory x {mults}; fleet B memory "
+          f"{sorted({c.memory_bytes for c in clients})}")
+    print(f"fleet A depth groups "
+          f"{dict(collections.Counter(depths.values()))}, scale groups "
+          f"{dict(collections.Counter(scales.values()))}")
+    common = dict(rounds=2, batch_size=32, clients_per_round=COHORT,
+                  compress_ratio=RATIO, seed=0, device="cuda")
+    params, state = model.init(torch.Generator().manual_seed(0))
+
+    def fedavg(fleet, **kw):
+        srv = FedAvgServer(model, fleet, clients_per_round=COHORT,
+                           batch_size=32, compress_ratio=RATIO, seed=0,
+                           device="cuda", **kw)
+        out = srv.run(params, state, rounds=2)
+        return dict(out, model=model, fused=srv.fused)
+
+    runs = [
+        ("allsmall", lambda: B.run_allsmall(RESNET18, fleet_a, **common),
+         None),
+        ("heterofl", lambda: B.run_heterofl(RESNET18, fleet_a, **common),
+         scales),
+        ("depthfl", lambda: B.run_depthfl(RESNET18, fleet_a, **common),
+         depths),
+        ("exclusivefl inoperative",
+         lambda: B.run_exclusivefl(RESNET18, fleet_a, **common), None),
+        ("tifl inoperative", lambda: B.run_tifl(RESNET18, fleet_a, **common),
+         None),
+        ("oort inoperative", lambda: B.run_oort(RESNET18, fleet_a, **common),
+         None),
+        ("exclusivefl", lambda: B.run_exclusivefl(RESNET18, clients,
+                                                  **common), None),
+        ("tifl", lambda: B.run_tifl(RESNET18, clients, **common), None),
+        ("oort", lambda: B.run_oort(RESNET18, clients, **common), None),
+        ("fedavg", lambda: fedavg(clients), None),
+        ("fedavg sequential (fused=False)",
+         lambda: fedavg(clients, fused=False), None),
+        ("fedavg deadline", lambda: fedavg(
+            stragglers, aggregation=DeadlineAggregation(factor=1.5),
+            time_model=FleetTimeModel.from_clients(stragglers,
+                                                   flops_per_sample=5e7)),
+         None)]
+    launches = {}
+    t_runs = time.perf_counter()
+    with _first_single_fold() as single, \
+            _first_single_fold(cohort=True) as cohort:
+        for name, run, group_of in runs:
+            torch.cuda.reset_peak_memory_stats()
+            with _ticks() as ticks, _uplinks() as uplink:
+                sparse_agg.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run()
+                torch.cuda.synchronize()
+                b1 = sparse_agg.launches
+            secs = time.perf_counter() - t0
+            if name.endswith("inoperative"):
+                print(f"{name}: inoperative {out.get('inoperative')}, "
+                      f"participation {out['participation']!r}")
+                assert out.get("inoperative") is True and b1 == 0, (name, b1)
+                continue
+            hist = out["history"]
+            for (rec, tick_ms, _), rr in zip(ticks, hist):
+                print(f"{name} round {rec.round_idx} loss {rr.loss:.4f} "
+                      f"wall_ms {tick_ms:.1f} selected "
+                      f"{[int(c) for c in rec.selected]} dropped "
+                      f"{[int(c) for c in rec.dropped]} sequential "
+                      f"{rec.sequential} "
+                      f"uplink_bytes {uplink.get(rec.round_idx, 0)} "
+                      f"duration {rec.duration!r} virtual_time "
+                      f"{rec.t_end!r}")
+            leaves = len(tree_leaves(out["params"]))
+            want = _expected_baseline_folds(
+                ticks, leaves, group_of,
+                sequential=out.get("fused") is False)
+            extra = (f", scale {out['scale']}" if "scale" in out else "")
+            print(f"{name}: {secs:.2f} s, participation "
+                  f"{out['participation']!r}{extra}, "
+                  f"torch.cuda.max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated()} on {card}; "
+                  f"sparse_cohort_add launches {b1} (expected {want})")
+            assert len(ticks) == len(hist) == 2, (name, len(hist))
+            assert all(math.isfinite(r.loss) for r in hist), name
+            leaves_all = tree_leaves(out["params"]) + tree_leaves(out["state"])
+            assert all(l.device.type == "cuda" for l in leaves_all)
+            assert all(bool(torch.isfinite(l).all()) for l in leaves_all)
+            assert b1 == want > 0, (name, b1, want)
+            recs = [rec for rec, _, _ in ticks]
+            if name == "allsmall":
+                assert out["scale"] < 1
+            if name == "heterofl":
+                assert len(set(scales.values())) > 1
+            if name == "tifl":
+                times = {c.client_id: c.num_samples / c.capability
+                         for c in clients}
+                first, second = ([times[c] for c in r.selected]
+                                 for r in recs)
+                assert max(first) <= min(second)  # one tier a round
+            if name.startswith("fedavg sequential"):
+                assert all(r.selected for r in recs)
+            if name == "fedavg deadline":
+                assert all(r.sequential for r in recs)
+                assert any(r.dropped for r in recs)
+            launches[name] = b1
+    assert torch.equal(single["out"], ref.sparse_cohort_add_ref(
+        single["idx"], single["vals"], single["w"], single["L"]))
+    print(f"K = 1 fold of the path (L {single['L']}, k "
+          f"{single['idx'].shape[1]}) == plain version, bit for bit")
+    want = ref.sparse_cohort_add_ref(cohort["idx"], cohort["vals"],
+                                     cohort["w"], cohort["L"])
+    mag = ref.sparse_cohort_add_ref(cohort["idx"], cohort["vals"].abs(),
+                                    cohort["w"], cohort["L"])
+    err = (cohort["out"] - want).abs()
+    assert bool((err <= 1e-6 * (1.0 + mag)).all()), float(err.max())
+    print(f"K = {cohort['idx'].shape[0]} fold of the path (L "
+          f"{cohort['L']}): max_abs_err {float(err.max()):.3e} against the "
+          f"plain version, within 1e-6 x (1 + sum |contributions|)")
+    # where an ExclusiveFL round's time goes, on the cohort's shards cut
+    # to BASELINE_PROFILE_SAMPLES (5 steps a client: a full round's
+    # 135,000 kernels take the profiler's parser minutes): round 1 timed,
+    # round 2 profiled for its kernels alone (round 0 warms cuDNN and the
+    # allocator)
+    t_prof = time.perf_counter()
+    cut = [dataclasses.replace(c, data={
+        k: v[:BASELINE_PROFILE_SAMPLES] for k, v in c.data.items()})
+        for c in clients]
+    tick = SyncAggregation.tick
+    by_class = {}
+
+    def profiled(policy, loop, r):
+        if r != 2:
+            return tick(policy, loop, r)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rec = tick(policy, loop, r)
+            torch.cuda.synchronize()
+        for row in prof.key_averages():
+            if row.device_type == torch.autograd.DeviceType.CUDA:
+                cls = _kernel_class(row.key)
+                by_class[cls] = (by_class.get(cls, 0.0)
+                                 + row.self_device_time_total)
+        return rec
+
+    SyncAggregation.tick = profiled
+    try:
+        with _ticks() as ticks:
+            B.run_exclusivefl(RESNET18, cut, **dict(common, rounds=3))
+    finally:
+        SyncAggregation.tick = tick
+    wall_ms = ticks[1][1]
+    steps = sum(cut[c].num_samples // 32 for c in ticks[1][0].selected)
+    print(f"exclusivefl round 1 (shards cut to {BASELINE_PROFILE_SAMPLES} "
+          f"samples): {steps} local steps, wall_ms {wall_ms:.1f} on {card}")
+    if by_class:
+        busy_ms = sum(by_class.values()) / 1e3
+        print(f"profile exclusivefl round 2 (the same cut): device busy ms "
+              f"{busy_ms:.1f}, idle share {1 - busy_ms / wall_ms:.3f} (of "
+              f"round 1's wall)")
+        for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
+            print(f"  {cls:>20}: {us / 1e3:9.2f} ms")
+    else:
+        print("profile exclusivefl: torch.profiler recorded no device time: "
+              "not measured")
+    print(f"baselines phase seconds: runs {t_prof - t_runs:.1f}, profile "
+          f"{time.perf_counter() - t_prof:.1f}")
+    return launches
+
+
+def phase_small_baselines_reference(rounds=12):
+    """Table 1's own configuration (``benchmarks/run.py:tab1_fl_accuracy``:
+    16 clients over 2,000 16x16 samples of 8 classes, the high-contention
+    pool under ``_table1_memory``, a (1, 1)-stage ResNet of widths
+    (12, 24), 5 clients a round, batch 32, ``fused=False``): the six
+    runners for 2 rounds on the card and in the port on the CPU (itself
+    held against the JAX package by tests/test_torch_baselines.py), with
+    selections, durations and participation equal and losses, params and
+    BN state within rtol 1e-3, atol 1e-5; then Table 1's ``rounds`` rounds
+    on the card alone, SmartFreeze with them, and the test accuracy of
+    each printed as ``tab1_fl_accuracy`` prints its row."""
+    import numpy as np
+    import torch
+    from repro_torch.data.partition import dirichlet_partition
+    from repro_torch.data.synthetic import SyntheticVision
+    from repro_torch.fl import baselines as B
+    from repro_torch.fl.client import make_client_fleet
+    from repro_torch.fl.server import SmartFreezeServer
+    from repro_torch.models.cnn import CNN, CNNConfig
+    from repro_torch.models.module import tree_leaves
+    sv = SyntheticVision(num_classes=8, image_size=16)
+    train = sv.sample(2000, seed=1)
+    test = sv.sample(400, seed=2)
+    parts = dirichlet_partition(train["y"], 16, alpha=1.0, seed=0)
+    cfg = CNNConfig("rn", "resnet", stage_sizes=(1, 1),
+                    stage_channels=(12, 24), num_classes=8)
+    clients = _table1_memory(
+        make_client_fleet(train, parts, scenario="high", seed=0),
+        B.full_model_memory(CNN(cfg, device="cpu"), 32))
+    names = ["allsmall", "exclusivefl", "heterofl", "oort", "tifl",
+             "depthfl"]
+    kw = dict(batch_size=32, clients_per_round=5, fused=False)
+    for name in names:
+        run = getattr(B, f"run_{name}")
+        c_out = run(cfg, clients, rounds=2, device="cpu", **kw)
+        g_out = run(cfg, clients, rounds=2, device="cuda", **kw)
+        assert set(c_out) == set(g_out), name
+        assert c_out["participation"] == g_out["participation"], name
+        assert c_out.get("scale") == g_out.get("scale"), name
+        assert len(c_out["history"]) == len(g_out["history"]), name
+        for a, b in zip(c_out["history"], g_out["history"]):
+            assert (a.selected, a.dropped, a.duration, a.virtual_time) == \
+                (b.selected, b.dropped, b.duration, b.virtual_time), name
+            np.testing.assert_allclose(b.loss, a.loss, **POLICY_TOL)
+        if "params" in c_out:
+            for a, b in zip(tree_leaves(c_out["params"])
+                            + tree_leaves(c_out["state"]),
+                            tree_leaves(g_out["params"])
+                            + tree_leaves(g_out["state"])):
+                np.testing.assert_allclose(b.cpu().numpy(), a.numpy(),
+                                           **POLICY_TOL)
+        print(f"small baselines, {name}: card == CPU path "
+              f"({'inoperative' if c_out.get('inoperative') else 'trained'},"
+              f" participation {g_out['participation']!r}, selected "
+              f"{[[int(c) for c in r.selected] for r in g_out['history']]})")
+    tx = torch.as_tensor(test["x"], device="cuda")
+    ty = torch.as_tensor(test["y"], device="cuda")
+
+    def accuracy(model, p, s):
+        with torch.no_grad():
+            logits, _ = model.apply(p, s, tx, train=False)
+        return float((logits.argmax(-1) == ty).float().mean())
+
+    t0 = time.perf_counter()
+    results = {}
+    model = CNN(cfg, device="cuda")
+    params, state = model.init(torch.Generator().manual_seed(0))
+    srv = SmartFreezeServer(model, clients, clients_per_round=5,
+                            batch_size=32, rounds_per_stage=rounds // 2,
+                            fused=False, device="cuda",
+                            pace_kwargs=dict(min_rounds=3, mu=2,
+                                             slope_lambda=3e-2))
+    out = srv.run(params, state)
+    results["smartfreeze"] = round(accuracy(model, out["params"],
+                                            out["state"]), 3)
+    for name in names:
+        out = getattr(B, f"run_{name}")(cfg, clients, rounds=rounds,
+                                        device="cuda", **kw)
+        if out.get("inoperative"):
+            results[name] = "NA(inoperative)"
+        else:
+            results[name] = round(accuracy(out["model"], out["params"],
+                                           out["state"]), 3)
+    us = (time.perf_counter() - t0) * 1e6
+    print(f"tab1_fl_accuracy,{us:.1f},{str(results).replace(',', ';')} "
+          f"(port on the card, {rounds} rounds)")
+    assert all(v == "NA(inoperative)" if isinstance(v, str)
+               else math.isfinite(v) for v in results.values()), results
+    assert [k for k, v in results.items() if isinstance(v, str)] == \
+        ["exclusivefl", "oort", "tifl"], results
 
 
 # (name, B, S, Hq, Hkv, d, dtype, causal), d an int or (dk, dv): the first
@@ -3014,6 +3385,8 @@ def main():
     phase_small_reference()
     policies = phase_policies(card)
     phase_small_policies_reference()
+    baselines = phase_baselines(card)
+    phase_small_baselines_reference()
     flash = phase_flash_attention(logs)
     (llama_flash, _, llama_b3), params, cfg = phase_lm_main_path(card)
     phase_lm_profile(card, params, cfg, exact_raises=True)
@@ -3048,6 +3421,8 @@ def main():
                                  "resnet18 tiered bf16": tiered_b1}
     entry["launches_by_path"].update(
         {f"resnet18 {name}": b1 for name, (b1, _) in policies.items()})
+    entry["launches_by_path"].update(
+        {f"resnet18 {name}": b1 for name, b1 in baselines.items()})
     entry["launches"] = sum(entry["launches_by_path"].values())
     flash["launches"] = llama_flash + hybrid_flash
     flash["launches_by_path"] = {"llama3-8b train": llama_flash,

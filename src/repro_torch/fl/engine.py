@@ -109,7 +109,11 @@ def make_local_train(loss_fn: LossFn, optimizer: Optimizer, *,
             req = tree_map(lambda x: x.detach().requires_grad_(True),
                            p if cdt is None else cast_floating(p, cdt))
             loss, st2 = loss_fn(req, frozen, st, batch)
-            grads = torch.autograd.grad(loss, tree_leaves(req))
+            # a leaf the loss never reads (a DepthFL client's deeper
+            # stages) gets a zero gradient, as under jax.grad
+            grads = torch.autograd.grad(loss, tree_leaves(req),
+                                        allow_unused=True,
+                                        materialize_grads=True)
             grads = tree_unflatten(req, grads)
             with torch.no_grad():
                 if cdt is not None:

@@ -1,5 +1,6 @@
-"""SmartFreeze server for the CNN testbed (counterpart of
-``repro/fl/server.py:SmartFreezeServer``).
+"""SmartFreeze server for the CNN testbed and the vanilla FedAvg baseline
+(counterpart of ``repro/fl/server.py:SmartFreezeServer`` and
+``FedAvgServer``).
 
 ``run`` executes the paper's pipeline end to end:
   (1) split the model into T stages and bootstrap the Eq. 8 client
@@ -21,12 +22,17 @@ Rounds run under the sync, deadline (``deadline_factor > 0``, or
 over an optional ``AvailabilityTrace``; ``fused=False`` sends every round
 to the engine's sequential escape hatch.
 
-Not ported in this slice, and rejected with ``TypeError`` rather than
-ignored: ``mesh``, ``faults``, ``screen_updates``, ``aggregator``,
+``FedAvgServer`` trains the full model every round over a random cohort
+of the clients whose memory holds it, on the same loop and with the same
+policy, availability, ``fused``, ``compress_ratio`` and ``compute_dtype``
+knobs.
+
+Not ported yet, and rejected with ``TypeError`` rather than ignored:
+``mesh``, ``faults``, ``screen_updates``, ``aggregator``,
 ``freeze_rollback`` (and its knobs) and ``use_pallas``, and ``run``'s
-``ckpt_manager`` and ``resume``. The compressed fold always goes through
-``kernels.ops.sparse_cohort_add``: a CUDA launch on the card, the plain
-version on the CPU.
+``ckpt_manager``, ``ckpt_every`` and ``resume``. The compressed fold
+always goes through ``kernels.ops.sparse_cohort_add``: a CUDA launch on
+the card, the plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -57,7 +63,7 @@ from repro_torch.models.cnn import CNN
 from repro_torch.models.module import tree_leaves
 from repro_torch.optim import Optimizer, sgd
 
-__all__ = ["SmartFreezeServer", "RoundResult"]
+__all__ = ["FedAvgServer", "SmartFreezeServer", "RoundResult"]
 
 
 @dataclass
@@ -331,3 +337,118 @@ class SmartFreezeServer:
             state = box["state"]
         return {"params": params, "state": state, "history": self.history,
                 "rounds": round_idx, "virtual_time": clock}
+
+
+class FedAvgServer:
+    """Vanilla FL baseline: the full model every round, a random cohort of
+    the clients with at least ``mem_required`` bytes. Runs on the same
+    ``FederatedLoop`` as SmartFreeze, so it takes the same ``aggregation``
+    / ``time_model`` / ``availability`` knobs (sync, deadline,
+    async-buffered) and reports per-round virtual durations in its
+    history. ``device`` is ``SmartFreezeServer``'s."""
+
+    def __init__(self, model: CNN, clients: List[SimClient], *,
+                 optimizer_fn: Callable[[], Optimizer] = lambda: sgd(0.05),
+                 clients_per_round: int = 10, local_epochs: int = 1,
+                 batch_size: int = 32, mem_required: float = 0.0,
+                 seed: int = 0, fused: bool = True,
+                 compress_ratio: Optional[float] = None,
+                 compute_dtype: Optional[str] = None,
+                 aggregation: Union[str, object, None] = None,
+                 time_model: Optional[FleetTimeModel] = None,
+                 availability: Optional[AvailabilityTrace] = None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.model = model
+        self.clients = {c.client_id: c for c in clients}
+        self.optimizer_fn = optimizer_fn
+        self.k = clients_per_round
+        self.local_epochs = local_epochs
+        self.batch_size = batch_size
+        self.mem_required = mem_required
+        self.seed = seed
+        self.fused = fused
+        self.compress_ratio = compress_ratio
+        self.compute_dtype = compute_dtype
+        self.aggregation = aggregation
+        self.time_model = time_model
+        self.availability = availability
+        self.history: List[RoundResult] = []
+
+    def run(self, params, state, *, rounds: int,
+            eval_fn: Optional[Callable] = None, eval_every: int = 10) -> Dict:
+        """``eval_fn(params, state, last_stage)`` runs every
+        ``eval_every`` rounds."""
+        model = self.model
+        n_stages = len(model.cfg.stage_sizes)
+
+        def full_loss(p, frozen_unused, st, batch):
+            return model.loss(p, st, batch, train=True)
+
+        engine = RoundEngine(loss_fn=full_loss, optimizer=self.optimizer_fn(),
+                             batch_size=self.batch_size,
+                             local_epochs=self.local_epochs, clip_norm=10.0,
+                             fused=self.fused,
+                             compress_ratio=self.compress_ratio,
+                             compute_dtype=self.compute_dtype,
+                             device=self.device)
+        rng = np.random.RandomState(self.seed)
+        eligible = [cid for cid, c in self.clients.items()
+                    if c.memory_bytes >= self.mem_required]
+        participation = len(eligible) / len(self.clients)
+        if not eligible or rounds <= 0:
+            return {"params": params, "state": state, "history": self.history,
+                    "participation": participation, "virtual_time": 0.0}
+
+        box = {"params": params, "state": state}
+        elig_set = set(eligible)
+
+        def select_fn(r, avail):
+            cands = [c for c in avail if c in elig_set]
+            if not cands:
+                return []
+            return list(rng.choice(cands, size=min(self.k, len(cands)),
+                                   replace=False))
+
+        def train_fn(cohort, r, sequential=None):
+            box["params"], box["state"], losses = engine.run_round(
+                self.clients, cohort, box["params"], box["state"], r,
+                sequential=sequential)
+            return losses
+
+        def train_one_fn(cid, p, s, r):
+            p_i, s_i, losses = engine.run_round(self.clients, [cid], p, s, r,
+                                                sequential=True)
+            return p_i, s_i, losses[cid]
+
+        def on_round(rec):
+            prev = self.history[-1].loss if self.history else None
+            rr = RoundResult(rec.round_idx, n_stages - 1,
+                             _mean_loss(rec.losses, prev=prev),
+                             selected=rec.selected,
+                             uplink_bytes=engine.last_uplink_bytes,
+                             duration=rec.duration, virtual_time=rec.t_end,
+                             dropped=rec.dropped)
+            if eval_fn is not None and rec.round_idx % eval_every == 0:
+                rr.test_acc = eval_fn(box["params"], box["state"],
+                                      n_stages - 1)
+            self.history.append(rr)
+            return False
+
+        tm = (dataclasses.replace(self.time_model)
+              if self.time_model is not None
+              else FleetTimeModel.from_clients(self.clients))
+        tm.payload_bytes = engine.per_client_uplink_bytes(box["params"])
+        loop = FederatedLoop(
+            select_fn=select_fn, train_fn=train_fn, clients=self.clients,
+            client_ids=list(self.clients),
+            aggregation=self.aggregation or "sync", time_model=tm,
+            availability=self.availability, on_round=on_round,
+            snapshot_fn=lambda: (box["params"], box["state"]),
+            train_one_fn=train_one_fn,
+            get_model_fn=lambda: (box["params"], box["state"]),
+            set_model_fn=lambda p, s: box.update(params=p, state=s))
+        loop.run(rounds)
+        return {"params": box["params"], "state": box["state"],
+                "history": self.history, "participation": participation,
+                "virtual_time": loop.clock}

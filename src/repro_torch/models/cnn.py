@@ -116,8 +116,12 @@ class CNN:
         self.device = resolve_device(self.device)
 
     def init(self, generator: torch.Generator) -> Tuple[Params, Params]:
+        return self.init_from(ParamFactory(generator, self.device))
+
+    def init_from(self, fac: ParamFactory) -> Tuple[Params, Params]:
+        """``init`` with the caller's factory (a factory of meta tensors
+        gives the shapes without drawing a number)."""
         cfg = self.cfg
-        fac = ParamFactory(generator, self.device)
         p: Params = {}
         s: Params = {}
         if cfg.kind == "resnet":
@@ -200,6 +204,11 @@ class CNN:
         h, state = self.run_stages(params, state, h, 0,
                                    len(self.cfg.stage_sizes), train=train)
         return self.head(params, h), state
+
+    def loss(self, params: Params, state: Params, batch, *,
+             train: bool = True):
+        logits, new_state = self.apply(params, state, batch["x"], train=train)
+        return softmax_xent(logits, batch["y"]), new_state
 
 
 def build_cnn(name: str, num_classes: int = 10, device="cuda") -> CNN:

@@ -23,9 +23,11 @@ Three levels:
     Eq. 8 similarity and each stage's output module come from the
     reference. One trajectory (the absolute deadline over availability
     seed 0) drifts past that tolerance in one element of 1,152 when run
-    free, through a one-client stage-1 round that amplifies a 3e-6 stage-0
-    difference; its every round is held instead from the reference's own
-    inputs, where the packages agree to about 1e-7.
+    free: a ReLU input within the convolution's f32 rounding of zero flips
+    in round 1, and a one-client stage-1 round amplifies the 3e-6 stage-0
+    difference it leaves, as it does in the reference itself
+    (``tests/test_torch_policies_drift.py``); its every round is held
+    instead from the reference's own inputs.
 
 The port's own claims (the dispatched bases are never written in place,
 the sequential path's residual rows are the fused path's, the reference's

@@ -152,9 +152,9 @@ def test_unported_policies_and_run_arguments_raise():
 
 def test_port_imports_without_jax_or_reference():
     """Every module of the port imports with JAX and the JAX package
-    blocked, the LM, serving, hybrid, B3, tier and policy slices' modules
-    among them, and registering the ported configs pulls in nothing of either;
-    chip_smoke.py imports neither."""
+    blocked, the LM, serving, hybrid, B3, tier, policy and baseline slices'
+    modules among them, and registering the ported configs pulls in nothing
+    of either; chip_smoke.py imports neither."""
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -171,7 +171,8 @@ def test_port_imports_without_jax_or_reference():
             "'repro_torch.models.ssm', 'repro_torch.kernels.ssm_scan', "
             "'repro_torch.kernels.block_perturb', 'repro_torch.core.pace', "
             "'repro_torch.fl.quant', 'repro_torch.kernels.dequant_matmul', "
-            "'repro_torch.fl.sim', 'repro_torch.fl.engine'):\n"
+            "'repro_torch.fl.sim', 'repro_torch.fl.engine', "
+            "'repro_torch.fl.baselines'):\n"
             "    assert n in names, n\n"
             "from repro_torch import configs\n"
             "assert configs.names() == ['deepseek-coder-33b', 'llama3-8b', "
