@@ -50,6 +50,18 @@ Phases, each of which exits non-zero on failure:
  6e. check the six baselines on the card against the port's CPU path at
      Table 1's configuration, then run Table 1's 12 rounds on the card and
      print its accuracy row;
+ 6f. drive the defenses on full-width ResNet-18 (phase 6b's straggler
+     fleet and deadline policy, ``COHORT`` clients a round): screening
+     under NaN, Inf and amplified updates (a client screened, every param
+     finite after every round, B3 counted), a sign-flipped round under
+     ``trimmed_mean`` and ``coord_median`` fused and sequential (the two
+     routes agree), the undefended and defended round in turns, a freeze
+     rollback restoring params equal to the freeze-time snapshot, and
+     crash and hang faults with top-k 0.1 uplinks under sync and async (B1
+     counted over the rounds' survivors, a K > 1 survivor fold within its
+     tolerance, a watchdog retry);
+ 6g. check the defenses on the card against the port's CPU path on the
+     small model: records equal, params allclose;
   7. hold the flash attention kernel (B4) against its plain version at the
      Llama-3-8B training shape and its variants (Zamba2-7B's head dim 112,
      hubert-xlarge's 80, the run-time widths 96, 256 and dk 192 with dv
@@ -1532,6 +1544,347 @@ def phase_small_baselines_reference(rounds=12):
         ["exclusivefl", "oort", "tifl"], results
 
 
+FAULT_PACE = dict(min_rounds=3, mu=1, slope_lambda=10.0)
+
+
+class _stage_starts:
+    """Inside the ``with``: every ``fz.merge_cnn_params`` result, cloned
+    as it is made (a freeze's snapshot), and the (stage, params) that each
+    stage starts from."""
+
+    def __enter__(self):
+        from repro_torch.core import freezing_cnn as fz
+        from repro_torch.models.module import tree_map
+        self.fz, self.saved = fz, (fz.merge_cnn_params,
+                                   fz.init_cnn_stage_active)
+        merge, init = self.saved
+        log = {"merged": [], "starts": []}
+
+        def merged(*a):
+            out = merge(*a)
+            log["merged"].append((out, tree_map(lambda t: t.clone(), out)))
+            return out
+
+        def started(model, params, stage, *a, **k):
+            log["starts"].append((stage, params))
+            return init(model, params, stage, *a, **k)
+        fz.merge_cnn_params, fz.init_cnn_stage_active = merged, started
+        return log
+
+    def __exit__(self, *exc):
+        self.fz.merge_cnn_params, self.fz.init_cnn_stage_active = self.saved
+
+
+def phase_faults(card):
+    """Fault injection, update screening, the robust aggregators and freeze
+    rollback on full-width ResNet-18: ``phase_policies``' straggler fleet
+    (a quarter 20x slower, the Eq. 6 time model at 5e7 FLOPs a sample),
+    ``COHORT`` clients a round, batch 32, SGD 0.05.
+
+      a. ``SmartFreezeServer.run`` under ``DeadlineAggregation(1.5)`` with
+         ``screen_updates=True`` and ``FaultInjector(p_fault=0.3,
+         kinds=("nan", "inf", "amplify"))``, schedule [2, 2, 2, 2]: a
+         client screened, every param finite after every round, B3 by
+         ``phase_main_path``'s rule;
+      b. one stage-0 round of the cohort with client 0's update
+         sign-flipped under ``trimmed_mean`` and ``coord_median``, fused
+         and ``fused=False`` (deterministic cuDNN): the two routes agree
+         within rtol 1e-3, atol 1e-5; then the same call's undefended
+         fused round, screened fused round and screened round with a NaN
+         client, three each, in turns;
+      c. ``freeze_rollback=True`` with a pace controller that freezes
+         stage 0 after its fourth round (``FAULT_PACE``), a guard band
+         below any loss and ``rollback_patience=1``, ``total_rounds=7``:
+         the first stage-1 round rolls the freeze back, and stage 0
+         restarts from params ``torch.equal`` to its freeze-time snapshot;
+      d. top-k 0.1 uplinks under ``FaultInjector(p_fault=0.3,
+         kinds=("crash", "hang"))``, sync (the plain fleet, schedule
+         [2, 2, 2, 2]) and async (buffer 4, concurrency 8, watchdog at the
+         median, 3 retries, [2, 2, 2, 2]): B1's count from the ticks (a
+         crashed round folds only its survivors), one K > 1 fold within
+         B1's tolerance of its plain version, a watchdog retry.
+
+    Counts set to 0 before each run and read after."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import freezing_cnn as fz
+    from repro_torch.fl.faults import FaultInjector
+    from repro_torch.fl.server import SmartFreezeServer
+    from repro_torch.fl.sim import (AsyncBufferedAggregation,
+                                    DeadlineAggregation, FleetTimeModel)
+    from repro_torch.kernels import block_perturb, ref, sparse_agg
+    from repro_torch.models.cnn import CNN, RESNET18
+    from repro_torch.models.module import tree_leaves
+    t_phase = time.perf_counter()
+    clients, _ = _fleet(10_000, 20, 32, 10)
+    stragglers = [dataclasses.replace(
+        c, capability=0.05e9 if c.client_id % 4 == 0 else 1e9)
+        for c in clients]
+    deadline = lambda: dict(  # noqa: E731
+        aggregation=DeadlineAggregation(factor=1.5),
+        time_model=FleetTimeModel.from_clients(stragglers,
+                                               flops_per_sample=5e7))
+    model = CNN(RESNET18, device="cuda")
+    params, state = model.init(torch.Generator().manual_seed(0))
+    out = {}
+
+    def finite(tree):
+        return all(bool(torch.isfinite(t).all()) for t in tree_leaves(tree))
+
+    def run(name, fleet, kw, **run_kw):
+        srv = SmartFreezeServer(model, fleet, clients_per_round=COHORT,
+                                batch_size=32, seed=0, device="cuda", **kw)
+        with _ticks() as ticks:
+            sparse_agg.launches = block_perturb.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = srv.run(params, state, **run_kw)
+            torch.cuda.synchronize()
+            b1, b3 = sparse_agg.launches, block_perturb.launches
+        secs = time.perf_counter() - t0
+        hist = res["history"]
+        for (rec, tick_ms, _), rr in zip(ticks, hist):
+            print(f"faults {name} round {rec.round_idx} stage {rr.stage} "
+                  f"loss {rr.loss:.4f} wall_ms {tick_ms:.1f} selected "
+                  f"{rec.selected} dropped {rec.dropped} faults {rec.faults} "
+                  f"screened {rr.screened} rolled_back {rr.rolled_back} "
+                  f"frozen {rr.frozen} retries {rec.retries} sequential "
+                  f"{rec.sequential}")
+        stages = [r.stage for r in hist]
+        want_b3 = _expected_b3(model, res["params"], stages)
+        print(f"faults {name}: {secs:.2f} s on {card}; sparse_cohort_add "
+              f"launches {b1}, diff_sqnorm launches {b3} (expected "
+              f"{want_b3})")
+        assert len(ticks) == len(hist)
+        assert b3 == want_b3, (name, b3, want_b3)
+        assert finite(res["params"]) and finite(res["state"]), name
+        assert all(l.device.type == "cuda"
+                   for l in tree_leaves(res["params"]))
+        return srv, res, ticks, b1, b3
+
+    # a. screening under NaN, Inf and amplified updates, deadline policy
+    checked = []
+
+    def eval_fn(p, s, stage):
+        assert finite(p) and finite(s), "a non-finite param after a round"
+        checked.append(stage)
+        return 0.0
+
+    _, res, ticks, b1, b3 = run(
+        "screened deadline", stragglers, dict(
+            screen_updates=True, faults=FaultInjector(
+                p_fault=0.3, kinds=("nan", "inf", "amplify"), seed=0),
+            **deadline()),
+        schedule=[2, 2, 2, 2], eval_fn=eval_fn, eval_every=1)
+    hist = res["history"]
+    screened = [c for r in hist for c in r.screened]
+    kinds = [k for rec, _, _ in ticks for k in rec.faults.values()]
+    print(f"faults screened deadline: faults drawn {kinds}, screened "
+          f"{screened}")
+    assert screened, "no client was screened"
+    assert len(checked) == len(hist) == 8
+    assert b1 == 0
+    out["resnet18 screened deadline"] = (b1, b3)
+
+    # b. signflip under the robust aggregators, fused and sequential; the
+    # same call's undefended and screened fused rounds in turns
+    srv = SmartFreezeServer(model, clients, clients_per_round=COHORT,
+                            batch_size=32, device="cuda")
+    frozen, active = fz.init_cnn_stage_active(
+        model, params, 0, torch.Generator().manual_seed(0))
+    engine = srv._stage_engine(0, frozen, state)
+    cohort = list(range(COHORT))
+
+    def one_round(r, seq=False, faults=None, **defense):
+        for k, v in dict(dict(screen=False, aggregator="mean"),
+                         **defense).items():
+            setattr(engine, k, v)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, s, losses = engine.run_round(srv.clients, cohort, active, state,
+                                        r, sequential=seq, faults=faults)
+        torch.cuda.synchronize()
+        return p, s, (time.perf_counter() - t0) * 1e3
+
+    # cuDNN's default convolution backward sums with atomics, so two runs
+    # of the same local training part by a few ulps, and a robust combine
+    # passes one client's value through per coordinate; deterministic
+    # algorithms make the two routes train alike, so what is compared is
+    # the routes' robust combine
+    flip = {cohort[0]: "signflip"}
+    torch.backends.cudnn.deterministic = True
+    for agg in ("trimmed_mean", "coord_median"):
+        pf, sf, ms_f = one_round(1, False, flip, aggregator=agg)
+        ps, ss, ms_s = one_round(1, True, flip, aggregator=agg)
+        worst = 0.0
+        for a, b in zip(tree_leaves(pf) + tree_leaves(sf),
+                        tree_leaves(ps) + tree_leaves(ss)):
+            torch.testing.assert_close(a, b, **POLICY_TOL)
+            worst = max(worst, float((a - b).abs().max()))
+        assert finite(pf) and finite(ps)
+        print(f"faults signflip round, {agg}: fused wall_ms {ms_f:.1f}, "
+              f"sequential {ms_s:.1f} (deterministic cuDNN); fused == "
+              f"sequential within rtol 1e-3, atol 1e-5 (max_abs_diff "
+              f"{worst:.3e}) on {card}")
+    torch.backends.cudnn.deterministic = False
+    walls = {"undefended": [], "screened": [], "screened, 1 NaN": []}
+    order = ["undefended", "screened", "screened, 1 NaN", "screened, 1 NaN",
+             "screened", "undefended", "undefended", "screened",
+             "screened, 1 NaN"]
+    for r, name in enumerate(order, start=2):
+        walls[name].append(one_round(
+            r, faults={cohort[0]: "nan"} if "NaN" in name else None,
+            screen=name != "undefended")[2])
+    steps = sum(c.num_samples // 32 for c in clients[:COHORT])
+    print(f"faults stage-0 fused round, {steps} local steps, in turns: "
+          + "; ".join(f"{k} wall_ms " + ", ".join(f"{w:.1f}" for w in v)
+                      for k, v in walls.items()) + f" on {card}")
+
+    # c. freeze rollback
+    with _stage_starts() as log:
+        srv, res, ticks, b1, b3 = run(
+            "rollback deadline", stragglers, dict(
+                freeze_rollback=True, rollback_guard=-1e9,
+                rollback_patience=1, pace_kwargs=FAULT_PACE, **deadline()),
+            total_rounds=7)
+    hist = res["history"]
+    assert [r.stage for r in hist] == [0, 0, 0, 0, 1, 0, 1], \
+        [r.stage for r in hist]
+    assert hist[3].frozen and hist[4].rolled_back and srv.rollbacks == 1
+    # the run's own stage starts (``_expected_b3`` makes more after it)
+    starts = log["starts"][:6]
+    assert [s for s, _ in starts] == [0, 1, 0, 1, 2, 3], [
+        s for s, _ in starts]
+    snapshot = next(c for m, c in log["merged"] if m is starts[1][1])
+    restored = starts[2][1]
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(restored),
+                                                 tree_leaves(snapshot)))
+    print(f"faults rollback: stage 0 froze after round 3, round 4 rolled "
+          f"it back, stage 0 restarted from params torch.equal to its "
+          f"freeze-time snapshot ({len(tree_leaves(snapshot))} leaves)")
+    out["resnet18 rollback deadline"] = (b1, b3)
+
+    # d. crash and hang with compressed uplinks: B1 folds the survivors
+    crash = lambda: FaultInjector(  # noqa: E731
+        p_fault=0.3, kinds=("crash", "hang"), seed=0)
+    timeout_s = float(np.median([c.num_samples / c.capability
+                                 for c in clients]))
+    with _first_single_fold(cohort=True) as kept:
+        for name, kw in (
+                ("crash sync", dict(compress_ratio=RATIO, faults=crash())),
+                ("crash async", dict(
+                    compress_ratio=RATIO, faults=crash(),
+                    aggregation=AsyncBufferedAggregation(
+                        buffer_size=4, concurrency=8, timeout_s=timeout_s,
+                        max_retries=3)))):
+            srv, res, ticks, b1, b3 = run(name, clients, kw,
+                                          schedule=[2, 2, 2, 2])
+            stages = [r.stage for r in res["history"]]
+            want = _expected_fold_launches(model, res["params"], srv, ticks,
+                                           stages)
+            lost = [c for rec, _, _ in ticks for c, k in rec.faults.items()
+                    if k in ("crash", "hang")]
+            print(f"faults {name}: crashed or hung {lost}; "
+                  f"sparse_cohort_add launches {b1} (expected {want})")
+            assert lost, name
+            assert b1 == want > 0, (name, b1, want)
+            if name == "crash async":
+                assert any(rec.retries for rec, _, _ in ticks), \
+                    "no watchdog retry fired"
+            else:
+                assert any(rec.faults and len(rec.selected) > 1
+                           for rec, _, _ in ticks), "no crashed cohort fold"
+            out[f"resnet18 {name}"] = (b1, b3)
+    want = ref.sparse_cohort_add_ref(kept["idx"], kept["vals"], kept["w"],
+                                     kept["L"])
+    mag = ref.sparse_cohort_add_ref(kept["idx"], kept["vals"].abs(),
+                                    kept["w"], kept["L"])
+    err = (kept["out"] - want).abs()
+    assert kept["idx"].shape[0] > 1
+    assert bool((err <= 1e-6 * (1.0 + mag)).all()), float(err.max())
+    print(f"faults: K = {kept['idx'].shape[0]} survivor fold of the path "
+          f"(L {kept['L']}): max_abs_err {float(err.max()):.3e} against the "
+          f"plain version, within 1e-6 x (1 + sum |contributions|)")
+    print(f"faults phase seconds {time.perf_counter() - t_phase:.1f}")
+    return out
+
+
+def phase_small_faults_reference():
+    """The defenses on the card against the port's CPU path (itself held
+    against the JAX package by tests/test_torch_rollback.py and
+    tests/test_torch_faults_loop.py), on ``phase_small_reference``'s small
+    model: (1) ``fused=False`` with ``screen_updates``, faults (nan,
+    amplify, signflip, crash at 0.3) and freeze rollback under
+    ``FAULT_PACE`` with a guard below any loss, ``total_rounds=6``; (2)
+    fused sync rounds at ratio 1.0 under crash and hang faults (the
+    compressed uplink takes no screen or robust aggregator), schedule
+    [2, 1].
+    The loop's records (selected, dropped, faults) and the server's
+    (screened, rolled_back) equal; losses, params and BN state rtol 1e-3,
+    atol 1e-5."""
+    import numpy as np
+    import torch
+    from repro_torch.convert import to_numpy, to_torch
+    from repro_torch.fl.faults import FaultInjector
+    from repro_torch.fl.server import SmartFreezeServer
+    from repro_torch.kernels import sparse_agg
+    from repro_torch.models.cnn import CNN, CNNConfig
+    from repro_torch.models.module import tree_leaves
+    cfg = CNNConfig("small", "resnet", stage_sizes=(1, 1),
+                    stage_channels=(8, 16), num_classes=4)
+    clients, _ = _fleet(256, 4, 16, 4)
+    params, state = CNN(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    runs = {
+        "screened rollback": (lambda: dict(
+            fused=False, screen_updates=True, freeze_rollback=True,
+            rollback_guard=-100.0, rollback_patience=1,
+            pace_kwargs=FAULT_PACE, faults=FaultInjector(
+                p_fault=0.3, kinds=("nan", "amplify", "signflip", "crash"),
+                seed=5)), dict(total_rounds=6)),
+        "crash compressed": (lambda: dict(
+            compress_ratio=1.0, faults=FaultInjector(
+                p_fault=0.3, kinds=("crash", "hang"), seed=2)),
+            dict(schedule=[2, 1]))}
+    for name, (kw, run_kw) in runs.items():
+        results = {}
+        for device in ("cpu", "cuda"):
+            srv = SmartFreezeServer(CNN(cfg, device=device), clients,
+                                    clients_per_round=3, batch_size=16,
+                                    seed=0, device=device, **kw())
+            before = sparse_agg.launches
+            with _ticks() as ticks:
+                out = srv.run(to_torch(to_numpy(params), device),
+                              to_torch(to_numpy(state), device), **run_kw)
+            if device == "cuda" and "compress_ratio" in kw():
+                assert sparse_agg.launches > before
+            results[device] = (out, [rec for rec, _, _ in ticks])
+        (c_out, c_recs), (g_out, g_recs) = results["cpu"], results["cuda"]
+        assert len(c_recs) == len(g_recs) == len(c_out["history"])
+        for a, b in zip(c_recs, g_recs):
+            assert (a.selected, a.dropped, a.faults) == \
+                (b.selected, b.dropped, b.faults), (a, b)
+            np.testing.assert_allclose(list(b.losses.values()),
+                                       list(a.losses.values()), **POLICY_TOL)
+        for a, b in zip(c_out["history"], g_out["history"]):
+            assert (a.stage, a.screened, a.rolled_back, a.frozen) == \
+                (b.stage, b.screened, b.rolled_back, b.frozen), (a, b)
+        for a, b in zip(tree_leaves(c_out["params"]) + tree_leaves(
+                c_out["state"]), tree_leaves(g_out["params"])
+                + tree_leaves(g_out["state"])):
+            np.testing.assert_allclose(b.cpu().numpy(), a.numpy(),
+                                       **POLICY_TOL)
+        hist = g_out["history"]
+        if name == "screened rollback":
+            assert any(r.rolled_back for r in hist)
+            assert any(r.screened for r in hist)
+        print(f"small model, {name}: card == CPU path, records "
+              f"{[(r.selected, r.dropped, r.faults) for r in g_recs]}, "
+              f"screened {[r.screened for r in hist]}, rolled_back "
+              f"{[r.rolled_back for r in hist]}")
+
+
 # (name, B, S, Hq, Hkv, d, dtype, causal), d an int or (dk, dv): the first
 # is the LM main path's shape (Llama-3-8B, batch 4 x 1024 tokens)
 FLASH_CASES = [("main", 4, 1024, 32, 8, 128, "bfloat16", True),
@@ -2953,9 +3306,10 @@ class _group_log:
                           "x_scale" in out)
             return out
 
-        def logged(eng, clients, cids, params, state, round_idx, *, tier):
+        def logged(eng, clients, cids, params, state, round_idx, *, tier,
+                   **kw):
             out = run_fused(eng, clients, cids, params, state, round_idx,
-                            tier=tier)
+                            tier=tier, **kw)
             from repro_torch.models.module import tree_leaves
             log.append(dict(tier=tier, n=len(cids), x=seen[tier],
                             agg_device=tree_leaves(out[0])[0].device.type))
@@ -3387,6 +3741,8 @@ def main():
     phase_small_policies_reference()
     baselines = phase_baselines(card)
     phase_small_baselines_reference()
+    faults = phase_faults(card)
+    phase_small_faults_reference()
     flash = phase_flash_attention(logs)
     (llama_flash, _, llama_b3), params, cfg = phase_lm_main_path(card)
     phase_lm_profile(card, params, cfg, exact_raises=True)
@@ -3423,6 +3779,8 @@ def main():
         {f"resnet18 {name}": b1 for name, (b1, _) in policies.items()})
     entry["launches_by_path"].update(
         {f"resnet18 {name}": b1 for name, b1 in baselines.items()})
+    entry["launches_by_path"].update(
+        {name: b1 for name, (b1, _) in faults.items() if b1})
     entry["launches"] = sum(entry["launches_by_path"].values())
     flash["launches"] = llama_flash + hybrid_flash
     flash["launches_by_path"] = {"llama3-8b train": llama_flash,
@@ -3436,6 +3794,8 @@ def main():
                                    "resnet18 tiered bf16": tiered_b3}
     perturb["launches_by_path"].update(
         {f"resnet18 {name}": b3 for name, (_, b3) in policies.items()})
+    perturb["launches_by_path"].update(
+        {name: b3 for name, (_, b3) in faults.items()})
     perturb["launches"] = sum(perturb["launches_by_path"].values())
     dequant["launches_by_path"] = {
         "resnet18 quant-aware int8 f32": qa["f32"],

@@ -18,10 +18,14 @@ through ``fl/sim.py``'s ``FederatedLoop``, so every baseline takes
 single-model async hooks), ``time_model``, ``availability``, ``fused``,
 ``compress_ratio`` and ``compute_dtype``. With ``compress_ratio`` each
 group's cohort is folded by the ``sparse_cohort_add`` kernel on the card.
+Every runner also takes ``faults`` (a ``fl/faults.FaultInjector``, handed
+to the loop), ``screen_updates`` and ``aggregator`` (handed to every
+engine), so each method runs under the same fault schedule as the
+servers; DepthFL and HeteroFL give each group's engine its clients'
+corruption faults.
 
 Every runner takes ``device`` (the card by default; it raises when CUDA is
-absent). ``faults``, ``screen_updates`` and ``aggregator`` are not ported
-yet and raise ``TypeError``.
+absent).
 
 Initial values come from ``torch.Generator``s seeded with ``seed`` (the
 model) and ``seed + 1`` (DepthFL's auxiliary heads); ``jax.random``
@@ -51,16 +55,6 @@ __all__ = ["full_model_memory", "scaled_config", "depthfl_depths",
            "heterofl_scales", "run_allsmall", "run_exclusivefl",
            "run_depthfl", "run_heterofl", "run_tifl", "run_oort"]
 
-_UNPORTED = ("faults", "screen_updates", "aggregator")
-
-
-def _reject_unported(fn: str, kw: Dict):
-    given = sorted(k for k in kw if k in _UNPORTED)
-    if given:
-        raise TypeError(f"{fn}: {given} not ported yet (fault injection and "
-                        "robust aggregation come with the robustness slice)")
-
-
 def full_model_memory(model: CNN, batch_size: int) -> float:
     n = len(model.cfg.stage_sizes)
     return sum(cnn_stage_memory_bytes(model, s, batch_size) for s in range(n))
@@ -73,13 +67,15 @@ def scaled_config(cfg: CNNConfig, scale: float) -> CNNConfig:
 
 
 def _run_loop(clients_by_id, select_fn, train_fn, on_round, rounds, *,
-              aggregation="sync", time_model=None, availability=None):
+              aggregation="sync", time_model=None, availability=None,
+              faults=None):
     """One-liner over ``FederatedLoop`` shared by the baseline runners."""
     loop = FederatedLoop(select_fn=select_fn, train_fn=train_fn,
                          clients=clients_by_id,
                          client_ids=list(clients_by_id),
                          aggregation=aggregation, time_model=time_model,
-                         availability=availability, on_round=on_round)
+                         availability=availability, on_round=on_round,
+                         faults=faults)
     loop.run(rounds)
     return loop
 
@@ -102,6 +98,13 @@ def _history_hook(history, n_stages, eval_fn, model, box):
     return on_round
 
 
+def _group_faults(faults, cids):
+    """The corruption faults of one engine group's clients (None when
+    none of them faults)."""
+    return ({c: k for c, k in faults.items() if c in cids}
+            if faults else None) or None
+
+
 def _random_select(rng: np.random.RandomState, k: int):
     def select_fn(r, avail):
         return list(rng.choice(avail, size=min(k, len(avail)),
@@ -118,7 +121,6 @@ def run_allsmall(cfg: CNNConfig, clients: List[SimClient], *, rounds: int,
                  batch_size: int = 32, eval_fn=None, seed: int = 0,
                  device="cuda", **kw) -> Dict:
     """Scale channels until the model fits the SMALLEST client memory."""
-    _reject_unported("run_allsmall", kw)
     min_mem = min(c.memory_bytes for c in clients)
     scale = 1.0
     while scale > 0.05:
@@ -146,7 +148,6 @@ def run_allsmall(cfg: CNNConfig, clients: List[SimClient], *, rounds: int,
 def run_exclusivefl(cfg: CNNConfig, clients: List[SimClient], *, rounds: int,
                     batch_size: int = 32, eval_fn=None, seed: int = 0,
                     device="cuda", **kw) -> Dict:
-    _reject_unported("run_exclusivefl", kw)
     model = CNN(cfg, device=device)
     req = full_model_memory(model, batch_size)
     eligible = [c for c in clients if c.memory_bytes >= req]
@@ -192,7 +193,8 @@ def run_depthfl(cfg: CNNConfig, clients: List[SimClient], *, rounds: int,
                 eval_fn=None, seed: int = 0, local_epochs: int = 1,
                 fused: bool = True, compress_ratio=None, compute_dtype=None,
                 aggregation="sync", time_model=None, availability=None,
-                device="cuda") -> Dict:
+                screen_updates: bool = False, aggregator: str = "mean",
+                faults=None, device="cuda") -> Dict:
     """Depth-scaled submodels: client c trains stages [0..d_c) + aux head.
 
     A client of depth d carries every stage in its tree but its loss reads
@@ -222,14 +224,15 @@ def run_depthfl(cfg: CNNConfig, clients: List[SimClient], *, rounds: int,
         return RoundEngine(loss_fn=loss_fn, optimizer=sgd(0.05),
                            batch_size=batch_size, local_epochs=local_epochs,
                            fused=fused, compress_ratio=compress_ratio,
-                           compute_dtype=compute_dtype, device=model.device)
+                           compute_dtype=compute_dtype, device=model.device,
+                           screen=screen_updates, aggregator=aggregator)
 
     engines = {d: make_engine(d) for d in range(n_stages)}
     rng = np.random.RandomState(seed)
     history: List[RoundResult] = []
     box = {"params": params, "state": state}
 
-    def train_fn(sel, r, sequential=None):
+    def train_fn(sel, r, sequential=None, faults=None):
         params, state = box["params"], box["state"]
         # one engine round per depth group (shapes are homogeneous within)
         by_depth: Dict[int, List[int]] = {}
@@ -243,9 +246,9 @@ def run_depthfl(cfg: CNNConfig, clients: List[SimClient], *, rounds: int,
                 sub["fc"] = params["fc"]
             else:
                 sub["aux"] = aux[d]
-            p_g, s_g, l_g = engines[d].run_round(clients_by_id, cids, sub,
-                                                 state, r,
-                                                 sequential=sequential)
+            p_g, s_g, l_g = engines[d].run_round(
+                clients_by_id, cids, sub, state, r, sequential=sequential,
+                faults=_group_faults(faults, cids))
             W_g = float(sum(clients_by_id[c].num_samples for c in cids))
             group_out[d] = {"params": p_g, "state": s_g, "weight": W_g}
             losses.update(l_g)
@@ -278,7 +281,7 @@ def run_depthfl(cfg: CNNConfig, clients: List[SimClient], *, rounds: int,
     _run_loop(clients_by_id, _random_select(rng, clients_per_round),
               train_fn, _history_hook(history, n_stages, eval_fn, model, box),
               rounds, aggregation=aggregation, time_model=time_model,
-              availability=availability)
+              availability=availability, faults=faults)
     return {"params": box["params"], "state": box["state"], "history": history,
             "participation": float(participation), "model": model}
 
@@ -330,7 +333,8 @@ def run_heterofl(cfg: CNNConfig, clients: List[SimClient], *, rounds: int,
                  eval_fn=None, seed: int = 0, local_epochs: int = 1,
                  fused: bool = True, compress_ratio=None, compute_dtype=None,
                  aggregation="sync", time_model=None, availability=None,
-                 device="cuda") -> Dict:
+                 screen_updates: bool = False, aggregator: str = "mean",
+                 faults=None, device="cuda") -> Dict:
     """Width-scaled submodels: a client of scale s trains the upper-left
     slice of every leaf that the scale-s model has. The groups' trees sum
     into f64 accumulators on the params' device, weighted by the group's
@@ -353,7 +357,8 @@ def run_heterofl(cfg: CNNConfig, clients: List[SimClient], *, rounds: int,
         return RoundEngine(loss_fn=loss_fn, optimizer=sgd(0.05),
                            batch_size=batch_size, local_epochs=local_epochs,
                            fused=fused, compress_ratio=compress_ratio,
-                           compute_dtype=compute_dtype, device=dev)
+                           compute_dtype=compute_dtype, device=dev,
+                           screen=screen_updates, aggregator=aggregator)
 
     engines = {s: make_engine(s) for s in _HFL_SCALES}
     rng = np.random.RandomState(seed)
@@ -364,7 +369,7 @@ def run_heterofl(cfg: CNNConfig, clients: List[SimClient], *, rounds: int,
     def zeros64(x):
         return torch.zeros(x.shape, dtype=torch.float64, device=x.device)
 
-    def train_fn(sel, r, sequential=None):
+    def train_fn(sel, r, sequential=None, faults=None):
         params_full, state_full = box["params"], box["state"]
         by_scale: Dict[float, List[int]] = {}
         for cid in sel:
@@ -379,9 +384,9 @@ def run_heterofl(cfg: CNNConfig, clients: List[SimClient], *, rounds: int,
             sub_shape, sub_state_shape = sub_shapes[sc]
             sub = tree_map(_slice_like, params_full, sub_shape)
             sub_st = tree_map(_slice_like, state_full, sub_state_shape)
-            p_g, s_g, l_g = engines[sc].run_round(clients_by_id, cids, sub,
-                                                  sub_st, r,
-                                                  sequential=sequential)
+            p_g, s_g, l_g = engines[sc].run_round(
+                clients_by_id, cids, sub, sub_st, r, sequential=sequential,
+                faults=_group_faults(faults, cids))
             W_g = float(sum(clients_by_id[c].num_samples for c in cids))
             losses.update(l_g)
 
@@ -404,7 +409,7 @@ def run_heterofl(cfg: CNNConfig, clients: List[SimClient], *, rounds: int,
               train_fn,
               _history_hook(history, n_stages, eval_fn, model_full, box),
               rounds, aggregation=aggregation, time_model=time_model,
-              availability=availability)
+              availability=availability, faults=faults)
     return {"params": box["params"], "state": box["state"], "history": history,
             "participation": 1.0, "model": model_full}
 
@@ -415,14 +420,16 @@ def run_heterofl(cfg: CNNConfig, clients: List[SimClient], *, rounds: int,
 
 
 def _full_model_engine(model, optimizer, batch_size, local_epochs, fused,
-                       compress_ratio, compute_dtype) -> RoundEngine:
+                       compress_ratio, compute_dtype, screen_updates,
+                       aggregator) -> RoundEngine:
     def full_loss(p, frozen_unused, st, batch):
         return model.loss(p, st, batch, train=True)
 
     return RoundEngine(loss_fn=full_loss, optimizer=optimizer,
                        batch_size=batch_size, local_epochs=local_epochs,
                        fused=fused, compress_ratio=compress_ratio,
-                       compute_dtype=compute_dtype, device=model.device)
+                       compute_dtype=compute_dtype, device=model.device,
+                       screen=screen_updates, aggregator=aggregator)
 
 
 def _payload_time_model(time_model, clients_by_id, engine, params):
@@ -439,7 +446,6 @@ def run_tifl(cfg: CNNConfig, clients: List[SimClient], *, rounds: int,
              eval_fn=None, seed: int = 0, device="cuda", **kw) -> Dict:
     """Tiers by ``|D_i| / c_i`` (the 0.33 and 0.66 quantiles); each round
     samples one tier, round-robin over the non-empty tiers."""
-    _reject_unported("run_tifl", kw)
     optimizer_fn = kw.pop("optimizer_fn", lambda: sgd(0.05))
     local_epochs = kw.pop("local_epochs", 1)
     fused = kw.pop("fused", True)
@@ -448,6 +454,9 @@ def run_tifl(cfg: CNNConfig, clients: List[SimClient], *, rounds: int,
     aggregation = kw.pop("aggregation", "sync")
     time_model = kw.pop("time_model", None)
     availability = kw.pop("availability", None)
+    screen_updates = kw.pop("screen_updates", False)
+    aggregator = kw.pop("aggregator", "mean")
+    faults = kw.pop("faults", None)
     if kw:
         raise TypeError(f"run_tifl: unknown kwargs {sorted(kw)}")
     model = CNN(cfg, device=device)
@@ -466,7 +475,7 @@ def run_tifl(cfg: CNNConfig, clients: List[SimClient], *, rounds: int,
     clients_by_id = {c.client_id: c for c in eligible}
     engine = _full_model_engine(model, optimizer_fn(), batch_size,
                                 local_epochs, fused, compress_ratio,
-                                compute_dtype)
+                                compute_dtype, screen_updates, aggregator)
     n_stages = len(cfg.stage_sizes)
     rng = np.random.RandomState(seed)
     history: List[RoundResult] = []
@@ -481,10 +490,10 @@ def run_tifl(cfg: CNNConfig, clients: List[SimClient], *, rounds: int,
         return list(rng.choice(tier, size=min(clients_per_round, len(tier)),
                                replace=False))
 
-    def train_fn(sel, r, sequential=None):
+    def train_fn(sel, r, sequential=None, faults=None):
         box["params"], box["state"], losses = engine.run_round(
             clients_by_id, sel, box["params"], box["state"], r,
-            sequential=sequential)
+            sequential=sequential, faults=faults)
         return losses
 
     _run_loop(clients_by_id, select_fn, train_fn,
@@ -492,7 +501,7 @@ def run_tifl(cfg: CNNConfig, clients: List[SimClient], *, rounds: int,
               aggregation=aggregation,
               time_model=_payload_time_model(time_model, clients_by_id,
                                              engine, params),
-              availability=availability)
+              availability=availability, faults=faults)
     return {"params": box["params"], "state": box["state"], "history": history,
             "participation": len(eligible) / len(clients), "model": model}
 
@@ -502,7 +511,8 @@ def run_oort(cfg: CNNConfig, clients: List[SimClient], *, rounds: int,
              eval_fn=None, seed: int = 0, local_epochs: int = 1,
              fused: bool = True, compress_ratio=None, compute_dtype=None,
              aggregation="sync", time_model=None, availability=None,
-             device="cuda") -> Dict:
+             screen_updates: bool = False, aggregator: str = "mean",
+             faults=None, device="cuda") -> Dict:
     """Selection by an epsilon-greedy bandit over Oort's statistical
     utility ``|D_i| sqrt(loss^2) - 0.1 |D_i| / c_i``."""
     model = CNN(cfg, device=device)
@@ -514,7 +524,8 @@ def run_oort(cfg: CNNConfig, clients: List[SimClient], *, rounds: int,
     params, state = model.init(torch.Generator().manual_seed(seed))
     bandit = UtilBandit(epsilon=0.3, seed=seed)
     engine = _full_model_engine(model, sgd(0.05), batch_size, local_epochs,
-                                fused, compress_ratio, compute_dtype)
+                                fused, compress_ratio, compute_dtype,
+                                screen_updates, aggregator)
     history: List[RoundResult] = []
     n_stages = len(cfg.stage_sizes)
     box = {"params": params, "state": state}
@@ -522,10 +533,10 @@ def run_oort(cfg: CNNConfig, clients: List[SimClient], *, rounds: int,
     def select_fn(r, avail):
         return list(bandit.pick(avail, min(clients_per_round, len(avail))))
 
-    def train_fn(sel, r, sequential=None):
+    def train_fn(sel, r, sequential=None, faults=None):
         box["params"], box["state"], losses = engine.run_round(
             clients_by_id, sel, box["params"], box["state"], r,
-            sequential=sequential)
+            sequential=sequential, faults=faults)
         for cid, loss_i in losses.items():
             if not np.isfinite(loss_i):
                 continue  # a non-finite round must not poison utility
@@ -542,6 +553,6 @@ def run_oort(cfg: CNNConfig, clients: List[SimClient], *, rounds: int,
               aggregation=aggregation,
               time_model=_payload_time_model(time_model, clients_by_id,
                                              engine, params),
-              availability=availability)
+              availability=availability, faults=faults)
     return {"params": box["params"], "state": box["state"], "history": history,
             "participation": len(eligible) / len(clients), "model": model}

@@ -29,6 +29,17 @@ The sequential escape hatch (``sequential=True``, or ``fused=False``) runs
 the same local step for one client at a time and compresses each client's
 update on its own: the deadline policy's straggler rounds and every async
 completion take it, so the fold runs there with K = 1.
+
+Defenses (``screen``, a robust ``aggregator``, injected corruption): the
+round keeps every client's trained tree, corrupts the faulty ones in delta
+space (``fl/faults.py``), and screens rows with a non-finite loss or delta
+or a delta norm past ``screen_norm_mult`` x the cohort's median. While
+every live row passes and nothing was corrupted, the aggregate is the
+undefended round's fold over the same trees, bit for bit; otherwise the
+kept rows are recombined by Eq. 1 on f64 weights (``_recombine_kept``), or
+by a per-coordinate ``trimmed_mean`` / ``coord_median``. A round whose
+every row is screened out is a no-op. None of this composes with
+``compress_ratio``.
 """
 from __future__ import annotations
 
@@ -41,6 +52,8 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.fl.client import SimClient, batch_index_plan
 from repro_torch.fl.compression import ingraph_compress_leaf, topk_keep
+from repro_torch.fl.faults import (CORRUPT_KINDS, FAULT_CODE,
+                                   apply_fault_to_update, corrupt_codes)
 from repro_torch.fl.quant import (EncodedFeatures, cast_floating,
                                   encode_features, feature_batch_arrays,
                                   make_input_cast_loss, make_tiered_loss,
@@ -75,6 +88,128 @@ def _wsum(acc, tree, wi):
 
 def _cast_like(acc, ref):
     return tree_map(lambda a, r: a.to(r.dtype), acc, ref)
+
+
+# ---------------------------------------------------------------------------
+# Update screening and robust aggregation
+# ---------------------------------------------------------------------------
+
+
+AGGREGATORS = ("mean", "trimmed_mean", "coord_median")
+_CODE_KIND = {code: kind for kind, code in FAULT_CODE.items()}
+
+
+def _apply_fault_codes(params, trained: List, losses: torch.Tensor,
+                       codes, amplify: float):
+    """Each client's trained tree corrupted in delta space per ``codes[i]``
+    (0 = clean, ``fl/faults.FAULT_CODE``): a clean row keeps its trained
+    tree untouched; NaN and Inf rows also report a NaN loss."""
+    out, losses = list(trained), losses.clone()
+    for i, c in enumerate(np.asarray(codes)):
+        kind = _CODE_KIND.get(int(c))
+        if kind is None:
+            continue
+        out[i] = apply_fault_to_update(kind, params, out[i], amplify=amplify)
+        if kind in ("nan", "inf"):
+            losses[i] = float("nan")
+    return out, losses
+
+
+def _delta_norm_one(params, p_i) -> torch.Tensor:
+    """f32 global L2 norm of one client's param delta (a NaN or Inf
+    anywhere surfaces as a non-finite norm)."""
+    sq = None
+    for p0, pk in zip(tree_leaves(params), tree_leaves(p_i)):
+        d = pk.float() - p0.float()
+        s = torch.sum(d * d)
+        sq = s if sq is None else sq + s
+    return torch.sqrt(sq)
+
+
+def _delta_norms(params, trained: Sequence) -> torch.Tensor:
+    """[K] f32 delta norms of the cohort's trained trees."""
+    return torch.stack([_delta_norm_one(params, p_i) for p_i in trained])
+
+
+def _lower_median(sorted_vals: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """Lower median of the first ``n_valid`` entries of an ascending-sorted
+    vector whose invalid tail is +inf (inf when nothing is valid)."""
+    return sorted_vals[max(int(n_valid) - 1, 0) // 2]
+
+
+def _keep_mask(norms, losses, weights, mult: float) -> torch.Tensor:
+    """Screening mask: drop rows with a non-finite loss or delta, and rows
+    whose delta norm exceeds ``mult`` x the cohort's lower median norm
+    (plus 1e-6). Inert rows (weight 0) are left out of the median and
+    never kept."""
+    valid = torch.isfinite(norms) & torch.isfinite(losses) & (weights > 0)
+    n_v = int(valid.sum())
+    med = _lower_median(torch.sort(torch.where(
+        valid, norms, torch.full_like(norms, float("inf")))).values, n_v)
+    outlier = torch.isfinite(med) & (norms > mult * med + 1e-6)
+    return valid & ~outlier
+
+
+def _verdict(norms, losses, weights, screen: bool, mult: float,
+             aggregator: str) -> torch.Tensor:
+    """Which rows a defended round keeps: ``_keep_mask`` when screening; a
+    robust aggregator alone still drops non-finite rows (they would
+    poison the order statistics); fault injection alone lets corruption
+    into the mean."""
+    if screen:
+        return _keep_mask(norms, losses, weights, mult)
+    if aggregator != "mean":
+        return torch.isfinite(norms) & torch.isfinite(losses) & (weights > 0)
+    return weights > 0
+
+
+def _robust_leaf(x: torch.Tensor, keep: torch.Tensor, n_valid: int,
+                 aggregator: str, trim_beta: float) -> torch.Tensor:
+    """Per-coordinate robust combine of a stacked [K, ...] leaf over the
+    kept rows: ``coord_median`` (the mean of the two middle order
+    statistics) or ``trimmed_mean`` (drop floor(beta * n) from each end,
+    the unweighted mean of the band). Masked rows sort to +inf and the
+    order statistics index only the valid prefix."""
+    n = int(n_valid)
+    xf = x.float()
+    kcol = keep.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
+    s = torch.sort(torch.where(kcol, xf, torch.full_like(xf, float("inf"))),
+                   dim=0).values
+    if aggregator == "coord_median":
+        lo = max(n - 1, 0) // 2
+        hi = max(n - 1, 0) - lo
+        out = (s[lo] + s[hi]) * 0.5
+    else:  # trimmed_mean
+        t = int(np.floor(np.float32(trim_beta) * np.float32(n)))
+        t = min(t, max(n - 1, 0) // 2)
+        out = s[t:n - t].sum(dim=0) / float(max(n - 2 * t, 1))
+    return out.to(x.dtype)
+
+
+def _robust_combine(trees: Sequence, keep: torch.Tensor, aggregator: str,
+                    trim_beta: float):
+    """``_robust_leaf`` over every leaf of the stacked ``trees``."""
+    n = int(keep.sum())
+    leaves = [torch.stack(ls) for ls in zip(*(tree_leaves(t)
+                                              for t in trees))]
+    if leaves:
+        keep = keep.to(leaves[0].device)
+    return tree_unflatten(trees[0], [
+        _robust_leaf(x, keep, n, aggregator, trim_beta) for x in leaves])
+
+
+def _recombine_kept(params, state, out_p: Sequence, out_st: Sequence,
+                    k_host: np.ndarray, weights):
+    """Eq. 1 over the kept rows alone, on f64 weights renormalized over
+    them: a screened row is dropped, never weighted by 0 (0 x NaN is
+    NaN). With every row screened out the round is a no-op."""
+    if not k_host.any():
+        return params, state
+    idx = np.nonzero(k_host)[0]
+    w = np.asarray(weights, np.float64)[idx]
+    w /= w.sum()
+    return (weighted_avg([out_p[i] for i in idx], w),
+            weighted_avg([out_st[i] for i in idx], w))
 
 
 def make_local_train(loss_fn: LossFn, optimizer: Optimizer, *,
@@ -133,7 +268,11 @@ def make_local_train(loss_fn: LossFn, optimizer: Optimizer, *,
 def make_fused_round(loss_fn: LossFn, optimizer: Optimizer, *,
                      clip_norm: float = 10.0,
                      compress_ratio: Optional[float] = None,
-                     compute_dtype: Optional[str] = None):
+                     compute_dtype: Optional[str] = None,
+                     screen: bool = False, screen_norm_mult: float = 8.0,
+                     aggregator: str = "mean", trim_beta: float = 0.2,
+                     inject_faults: bool = False,
+                     fault_amplify: float = 50.0):
     """Build the round function.
 
     ``round_fn(params, frozen, state, batches, weights)``
@@ -152,7 +291,31 @@ def make_fused_round(loss_fn: LossFn, optimizer: Optimizer, *,
     sparse fold and reproduces the dense Eq. 1 aggregate (allclose).
 
     ``compute_dtype`` is ``make_local_train``'s; the Eq. 1 fold stays f32.
+
+    ``screen``, a robust ``aggregator`` or ``inject_faults`` build the
+    defended round, ``round_fn(params, frozen, state, batches, weights,
+    fault_codes=None) -> (agg_params, agg_state, losses, keep)``:
+    ``fault_codes`` is a [K] int array of ``fl/faults.FAULT_CODE``s (None
+    for a clean round) and ``keep`` the [K] bool screen verdict. Rows with
+    a non-finite loss or delta, or (with ``screen``) a delta norm past
+    ``screen_norm_mult`` x the cohort's lower median, are screened out.
+    With every live row kept and no codes, the aggregate is the undefended
+    round's, bit for bit; otherwise ``_recombine_kept`` folds the kept
+    rows. ``aggregator`` ``"trimmed_mean"`` (``trim_beta`` from each end)
+    or ``"coord_median"`` combines the kept rows per coordinate, params
+    and BN state alike; with no row kept the round returns its inputs.
+    Defenses raise ``ValueError`` with ``compress_ratio``.
     """
+    if aggregator not in AGGREGATORS:
+        raise ValueError(f"unknown aggregator {aggregator!r}; "
+                         f"choose from {AGGREGATORS}")
+    defended = screen or inject_faults or aggregator != "mean"
+    if compress_ratio is not None and defended:
+        raise ValueError(
+            "screening / robust aggregation / fault injection do not "
+            "compose with the compressed uplink (error-feedback residuals "
+            "would carry the corrupted signal forward); use "
+            "compress_ratio=None")
     train = make_local_train(loss_fn, optimizer, clip_norm=clip_norm,
                              compute_dtype=compute_dtype)
 
@@ -195,7 +358,40 @@ def make_fused_round(loss_fn: LossFn, optimizer: Optimizer, *,
         return (tree_unflatten(params, new_p), agg_st, losses,
                 tree_unflatten(params, new_r))
 
-    return round_fn
+    def defended_fn(params, frozen, state, batches, weights,
+                    fault_codes=None):
+        outs = [local_train(params, frozen, state, b) for b in batches]
+        out_p, out_st = [o[0] for o in outs], [o[1] for o in outs]
+        losses = torch.stack([o[2] for o in outs])
+        if fault_codes is not None:
+            out_p, losses = _apply_fault_codes(params, out_p, losses,
+                                               fault_codes, fault_amplify)
+        with torch.no_grad():
+            keep = _verdict(_delta_norms(params, out_p), losses, weights,
+                            screen, screen_norm_mult, aggregator)
+            if aggregator != "mean":
+                if not bool(keep.any()):  # never average NaN
+                    return params, state, losses, keep
+                return (_robust_combine(out_p, keep, aggregator, trim_beta),
+                        _robust_combine(out_st, keep, aggregator,
+                                        trim_beta), losses, keep)
+            k_host = keep.cpu().numpy()
+            w_host = weights.cpu().numpy()
+            if fault_codes is None and not np.any(~k_host & (w_host > 0)):
+                # every live row passed: the undefended round's fold over
+                # the same trees in the same order, bit for bit
+                w = (weights / torch.sum(weights)).float()
+                agg_p = agg_st = None
+                for i in range(len(out_p)):
+                    agg_p = _wsum(agg_p, out_p[i], w[i])
+                    agg_st = _wsum(agg_st, out_st[i], w[i])
+                return (_cast_like(agg_p, params), _cast_like(agg_st, state),
+                        losses, keep)
+            agg_p, agg_st = _recombine_kept(params, state, out_p, out_st,
+                                            k_host, w_host)
+        return agg_p, agg_st, losses, keep
+
+    return defended_fn if defended else round_fn
 
 
 @dataclass
@@ -219,6 +415,14 @@ class RoundEngine:
     ``sequential=True``: each client trains alone and its update is
     compressed on its own, one fold of one client per leaf.
 
+    ``screen`` turns on the update screen (``make_fused_round``; the
+    verdicts land in ``last_screened``, True = screened out),
+    ``aggregator`` picks ``"trimmed_mean"`` or ``"coord_median"``, and
+    ``run_round(..., faults={cid: kind})`` corrupts the updates of the
+    ``fl/faults.CORRUPT_KINDS`` clients by ``fault_amplify`` or in kind,
+    on the fused and the sequential path alike. With screening on and no
+    faults a round is bitwise the undefended one.
+
     ``device`` defaults to the card and raises when CUDA is absent.
     """
 
@@ -234,11 +438,17 @@ class RoundEngine:
     compress_ratio: Optional[float] = None
     compute_dtype: Optional[str] = None
     device: torch.device = "cuda"
+    screen: bool = False
+    screen_norm_mult: float = 8.0
+    aggregator: str = "mean"
+    trim_beta: float = 0.2
+    fault_amplify: float = 50.0
     last_uplink_bytes: int = 0
+    last_screened: Dict[int, bool] = field(default_factory=dict, repr=False)
     _features: Dict[int, EncodedFeatures] = field(default_factory=dict,
                                                   repr=False)
-    _round_fns: Dict[Optional[str], Callable] = field(default_factory=dict,
-                                                      repr=False)
+    _round_fns: Dict[Tuple, Callable] = field(default_factory=dict,
+                                              repr=False)
     _seq_fns: Dict[Optional[str], Callable] = field(default_factory=dict,
                                                     repr=False)
     _res_pool: List[torch.Tensor] = field(default_factory=list, repr=False)
@@ -315,7 +525,8 @@ class RoundEngine:
     def run_round(self, clients: Dict[int, SimClient], selected: List[int],
                   params, state, round_idx: int, *,
                   use_cache: Optional[Dict[int, Optional[str]]] = None,
-                  sequential: Optional[bool] = None
+                  sequential: Optional[bool] = None,
+                  faults: Optional[Dict[int, str]] = None
                   ) -> Tuple[Any, Any, Dict[int, float]]:
         """One federated round over ``selected``. Returns (params, state,
         per-client mean loss). The cohort splits into one group per cache
@@ -326,10 +537,23 @@ class RoundEngine:
         (``"f32"``, ``"fp16"``, ``"int8"``; ``True`` is ``"f32"``) or
         ``None`` (recompute). ``sequential`` picks the path of every group:
         ``None`` is the engine's default (``not fused``), ``True`` the
-        sequential escape hatch, ``False`` the fused round."""
+        sequential escape hatch, ``False`` the fused round. ``faults`` maps
+        cohort ids to ``fl/faults.CORRUPT_KINDS``, whose updates are
+        corrupted before screening; other kinds are ignored (the
+        aggregation policies drop crashed and hung clients upstream)."""
         use_cache = use_cache or {}
         seq = (not self.fused) if sequential is None else sequential
+        if self.aggregator not in AGGREGATORS:
+            raise ValueError(f"unknown aggregator {self.aggregator!r}; "
+                             f"choose from {AGGREGATORS}")
+        faults = {int(c): k for c, k in (faults or {}).items()
+                  if k in CORRUPT_KINDS} or None
+        if ((self.screen or self.aggregator != "mean" or faults)
+                and self.compress_ratio is not None):
+            raise ValueError("screening / robust aggregation / fault "
+                             "injection do not compose with compress_ratio")
         self.last_uplink_bytes = 0
+        self.last_screened = {}
         groups: Dict[Optional[str], List[int]] = {}
         for cid in selected:
             tier = (normalize_tier(use_cache.get(cid))
@@ -340,7 +564,7 @@ class RoundEngine:
         for tier, cids in groups.items():
             runner = self._run_sequential if seq else self._run_fused
             p_g, s_g, l_g, w_g = runner(clients, cids, params, state,
-                                        round_idx, tier=tier)
+                                        round_idx, tier=tier, faults=faults)
             partials.append((p_g, s_g, w_g))
             losses.update(l_g)
         if len(partials) == 1:
@@ -373,7 +597,11 @@ class RoundEngine:
             return self.loss_fn
         return make_tiered_loss(self.cached_loss_fn, tier, self.compute_dtype)
 
-    def _run_fused(self, clients, cids, params, state, round_idx, *, tier):
+    def _run_fused(self, clients, cids, params, state, round_idx, *, tier,
+                   faults=None):
+        codes = corrupt_codes(faults, cids)
+        defended = (self.screen or self.aggregator != "mean"
+                    or codes is not None)
         plans = [batch_index_plan(clients[c].num_samples, self.batch_size,
                                   self.local_epochs,
                                   clients[c].round_seed(round_idx))
@@ -382,12 +610,21 @@ class RoundEngine:
                    for c, plan in zip(cids, plans)]
         weights = np.asarray([clients[c].num_samples for c in cids],
                              np.float32)
-        fn = self._round_fns.get(tier)
+        # an undefended round keeps its own function; a defended one is
+        # keyed by its defenses and whether it corrupts
+        key = ((tier, self.screen, self.aggregator, codes is not None)
+               if defended else (tier,))
+        fn = self._round_fns.get(key)
         if fn is None:
-            fn = self._round_fns[tier] = make_fused_round(
+            fn = self._round_fns[key] = make_fused_round(
                 self._group_loss_fn(tier), self.optimizer,
                 clip_norm=self.clip_norm, compress_ratio=self.compress_ratio,
-                compute_dtype=self.compute_dtype)
+                compute_dtype=self.compute_dtype,
+                screen=self.screen and defended,
+                screen_norm_mult=self.screen_norm_mult,
+                aggregator=self.aggregator if defended else "mean",
+                trim_beta=self.trim_beta, inject_faults=codes is not None,
+                fault_amplify=self.fault_amplify)
         frozen = ({} if tier is not None else
                   (self.frozen if self.frozen is not None else {}))
         w_dev = torch.as_tensor(weights, device=self.device)
@@ -398,6 +635,12 @@ class RoundEngine:
                                       residuals)
             for pool, r in zip(self._res_pool, tree_leaves(new_r)):
                 pool[rows] = r
+        elif defended:
+            p_g, s_g, l_g, keep = fn(params, frozen, state, batches, w_dev,
+                                     codes)
+            if self.screen:
+                self.last_screened.update(
+                    {c: not bool(k) for c, k in zip(cids, keep.tolist())})
         else:
             p_g, s_g, l_g = fn(params, frozen, state, batches, w_dev)
         self.last_uplink_bytes += self._uplink_bytes(params, len(cids))
@@ -434,14 +677,22 @@ class RoundEngine:
         return tree_unflatten(params, new_p)
 
     def _run_sequential(self, clients, cids, params, state, round_idx, *,
-                        tier):
+                        tier, faults=None):
         """Each client trains alone from the round-start params with a
         fresh optimizer state on its own batch plan; its losses come back
         in one read and average in f64, as the reference's per-step reads
-        do. The group combines by the Eq. 1 weighted average."""
+        do. The group combines by the Eq. 1 weighted average. Defended, a
+        faulty client's update is corrupted on the host
+        (``apply_fault_to_update``), each update's delta norm is taken
+        alone, and the kept updates combine by Eq. 1 over themselves or by
+        the robust aggregator; with every update kept and none corrupted
+        the combine is the undefended one."""
         train = self._seq_train(tier)
         frozen = ({} if tier is not None else
                   (self.frozen if self.frozen is not None else {}))
+        faults = faults or {}
+        defended = (self.screen or self.aggregator != "mean"
+                    or any(cid in faults for cid in cids))
         updates, weights, losses = [], [], {}
         for cid in cids:
             c = clients[cid]
@@ -455,11 +706,49 @@ class RoundEngine:
             l_host = (torch.stack(step_losses).cpu().numpy()
                       if step_losses else np.zeros(1))
             losses[cid] = float(np.mean(l_host, dtype=np.float64))
+            kind = faults.get(cid)
+            if kind is not None:
+                p_i = apply_fault_to_update(kind, params, p_i,
+                                            amplify=self.fault_amplify)
+                if kind in ("nan", "inf"):
+                    losses[cid] = float("nan")
             updates.append((p_i, s_i))
             weights.append(c.num_samples)
         self.last_uplink_bytes += self._uplink_bytes(params, len(cids))
-        w = np.asarray(weights, np.float64)
-        w = w / w.sum()
+        w_arr = np.asarray(weights, np.float64)
+        if defended:
+            # the fused round's verdict on the host, in f64 as the
+            # reference's sequential screen computes it
+            with torch.no_grad():
+                norms = torch.tensor([float(_delta_norm_one(params, u[0]))
+                                      for u in updates], dtype=torch.float64)
+            keep = _verdict(norms, torch.tensor([losses[c] for c in cids],
+                                                dtype=torch.float64),
+                            torch.as_tensor(w_arr), self.screen,
+                            self.screen_norm_mult, self.aggregator).numpy()
+            if self.screen:
+                self.last_screened.update(
+                    {cid: not bool(k) for cid, k in zip(cids, keep)})
+            if not keep.any():
+                # every update screened out: the group is a no-op
+                return params, state, losses, float(w_arr.sum())
+            kept = [u for u, k in zip(updates, keep) if k]
+            if self.aggregator != "mean":
+                every = torch.ones(len(kept), dtype=torch.bool,
+                                   device=self.device)
+                with torch.no_grad():
+                    return (_robust_combine([u[0] for u in kept], every,
+                                            self.aggregator, self.trim_beta),
+                            _robust_combine([u[1] for u in kept], every,
+                                            self.aggregator, self.trim_beta),
+                            losses, float(w_arr.sum()))
+            if not keep.all():
+                w = w_arr[keep] / w_arr[keep].sum()
+                return (weighted_avg([u[0] for u in kept], w),
+                        weighted_avg([u[1] for u in kept], w), losses,
+                        float(w_arr.sum()))
+            # all kept under the mean: the undefended combine below
+        w = w_arr / w_arr.sum()
         return (weighted_avg([u[0] for u in updates], w),
                 weighted_avg([u[1] for u in updates], w), losses,
                 float(np.sum(weights)))

@@ -22,17 +22,25 @@ Rounds run under the sync, deadline (``deadline_factor > 0``, or
 over an optional ``AvailabilityTrace``; ``fused=False`` sends every round
 to the engine's sequential escape hatch.
 
+Defenses: ``faults`` (a ``fl/faults.FaultInjector``) goes to the loop,
+``screen_updates`` and ``aggregator`` to every stage's engine, and
+``freeze_rollback`` watches the rounds after each pace freeze: when the
+mean loss stays above the pre-freeze reference plus ``rollback_guard``
+for ``rollback_patience`` rounds, the freeze is undone and the frozen
+stage restarts from its freeze-time snapshot, at most ``max_rollbacks``
+times a run. ``RoundResult`` records the screened clients and the
+rollback.
+
 ``FedAvgServer`` trains the full model every round over a random cohort
 of the clients whose memory holds it, on the same loop and with the same
-policy, availability, ``fused``, ``compress_ratio`` and ``compute_dtype``
-knobs.
+policy, availability, ``fused``, ``compress_ratio``, ``compute_dtype``,
+``faults``, ``screen_updates`` and ``aggregator`` knobs.
 
 Not ported yet, and rejected with ``TypeError`` rather than ignored:
-``mesh``, ``faults``, ``screen_updates``, ``aggregator``,
-``freeze_rollback`` (and its knobs) and ``use_pallas``, and ``run``'s
-``ckpt_manager``, ``ckpt_every`` and ``resume``. The compressed fold
-always goes through ``kernels.ops.sparse_cohort_add``: a CUDA launch on
-the card, the plain version on the CPU.
+``mesh`` and ``use_pallas``, and ``run``'s ``ckpt_manager``,
+``ckpt_every`` and ``resume`` (checkpoints come with their own slice). The
+compressed fold always goes through ``kernels.ops.sparse_cohort_add``: a
+CUDA launch on the card, the plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -55,7 +63,8 @@ from repro_torch.core.selector import (InfeasibleStageError,
 from repro_torch.core.selector.similarity import similarity_matrix
 from repro_torch.core.time_model import cnn_cached_compute_scale
 from repro_torch.fl.client import SimClient
-from repro_torch.fl.engine import RoundEngine
+from repro_torch.fl.engine import AGGREGATORS, RoundEngine
+from repro_torch.fl.faults import FaultInjector
 from repro_torch.fl.sim import (AvailabilityTrace, DeadlineAggregation,
                                 FederatedLoop, FleetTimeModel,
                                 SyncAggregation, resolve_policy)
@@ -80,9 +89,21 @@ class RoundResult:
     virtual_time: Optional[float] = None  # virtual clock at round end
     dropped: List[int] = field(default_factory=list)  # late / dropout / retry
     cache_bytes: Optional[int] = None    # resident feature cache
+    screened: List[int] = field(default_factory=list)  # updates screened out
+    rolled_back: bool = False            # this round triggered a rollback
 
 
 _log = logging.getLogger(__name__)
+
+
+def _check_aggregator(aggregator: str):
+    if aggregator not in AGGREGATORS:
+        raise ValueError(f"unknown aggregator {aggregator!r}; "
+                         f"choose from {AGGREGATORS}")
+
+
+def _screened(engine: RoundEngine) -> List[int]:
+    return sorted(c for c, s in engine.last_screened.items() if s)
 
 
 def _mean_loss(losses: Dict[int, float],
@@ -118,7 +139,13 @@ class SmartFreezeServer:
                  aggregation: Union[str, object, None] = None,
                  time_model: Optional[FleetTimeModel] = None,
                  availability: Optional[AvailabilityTrace] = None,
+                 screen_updates: bool = False, aggregator: str = "mean",
+                 faults: Optional[FaultInjector] = None,
+                 freeze_rollback: bool = False,
+                 rollback_guard: float = 0.5, rollback_window: int = 8,
+                 rollback_patience: int = 2, max_rollbacks: int = 1,
                  device="cuda"):
+        _check_aggregator(aggregator)
         # admission ladder, most exact first; "all" is f32 -> fp16 -> int8
         self.cache_tiers = (CACHE_TIERS if cache_tiers == "all"
                             else tuple(cache_tiers))
@@ -148,6 +175,15 @@ class SmartFreezeServer:
         self.policy = self._policy()
         self.time_model = time_model
         self.availability = availability
+        self.screen_updates = screen_updates
+        self.aggregator = aggregator
+        self.faults = faults
+        self.freeze_rollback = freeze_rollback
+        self.rollback_guard = rollback_guard
+        self.rollback_window = rollback_window
+        self.rollback_patience = rollback_patience
+        self.max_rollbacks = max_rollbacks
+        self.rollbacks = 0                   # freeze rollbacks taken so far
         self.history: List[RoundResult] = []
         self.cache_tier_plan: Dict[int, Optional[str]] = {}  # current stage
         self._last_loss: Dict[int, float] = {}
@@ -195,7 +231,8 @@ class SmartFreezeServer:
             batch_size=self.batch_size, local_epochs=self.local_epochs,
             clip_norm=10.0, fused=self.fused,
             compress_ratio=self.compress_ratio,
-            compute_dtype=self.compute_dtype, device=self.device)
+            compute_dtype=self.compute_dtype, device=self.device,
+            screen=self.screen_updates, aggregator=self.aggregator)
 
     def _cache_plan(self, stage: int) -> Dict[int, Optional[str]]:
         """The memory model's admission ladder (Eq. 12 per tier): walk
@@ -230,7 +267,13 @@ class SmartFreezeServer:
         round_idx = 0
         self.selector.fit_communities(self.bootstrap_similarity(params, state))
 
-        for stage in range(n_stages):
+        # freeze rollback: armed right after a pace freeze with the merged
+        # model and the pre-freeze loss reference; the next stage's rounds
+        # are watched for a regression past the guard band
+        rb_armed: Optional[Dict] = None
+        recent_losses: List[float] = []
+        stage = 0
+        while stage < n_stages:
             if schedule is not None:
                 plan_rounds = schedule[stage]
             else:
@@ -249,6 +292,7 @@ class SmartFreezeServer:
                                              self.image_size)
             stage_base = params
             box = {"active": active, "state": state}
+            flags = {"freeze": False, "rollback": False}
             time_fn = lambda ci: ci.num_samples / ci.capability
 
             def select_fn(r, avail):
@@ -269,10 +313,10 @@ class SmartFreezeServer:
                         return []
                     raise
 
-            def train_fn(cohort, r, sequential=None):
+            def train_fn(cohort, r, sequential=None, faults=None):
                 box["active"], box["state"], losses = engine.run_round(
                     self.clients, cohort, box["active"], box["state"], r,
-                    use_cache=cache_ok, sequential=sequential)
+                    use_cache=cache_ok, sequential=sequential, faults=faults)
                 self._last_loss.update(
                     {c: v for c, v in losses.items() if np.isfinite(v)})
                 return losses
@@ -292,6 +336,18 @@ class SmartFreezeServer:
                 prev = self.history[-1].loss if self.history else None
                 loss = _mean_loss(rec.losses, prev=prev)
                 do_freeze = pace.should_freeze() and schedule is None
+                # the watch armed by the previous stage's freeze: a
+                # sustained regression past the guard band rolls it back
+                rolled = False
+                if rb_armed is not None and np.isfinite(loss):
+                    if loss > rb_armed["ref"] + self.rollback_guard:
+                        rb_armed["bad"] += 1
+                    else:
+                        rb_armed["bad"] = 0
+                    if rb_armed["bad"] >= self.rollback_patience:
+                        rolled = flags["rollback"] = True
+                        do_freeze = False
+                flags["freeze"] = do_freeze
                 rr = RoundResult(rec.round_idx, stage, loss,
                                  selected=rec.selected, perturbation=p,
                                  frozen=do_freeze,
@@ -299,14 +355,19 @@ class SmartFreezeServer:
                                  duration=rec.duration,
                                  virtual_time=rec.t_end,
                                  dropped=rec.dropped,
-                                 cache_bytes=engine.cache_nbytes())
+                                 cache_bytes=engine.cache_nbytes(),
+                                 screened=_screened(engine),
+                                 rolled_back=rolled)
+                if np.isfinite(loss):
+                    recent_losses.append(loss)
+                    del recent_losses[:-self.rollback_window]
                 if eval_fn is not None and (rec.round_idx % eval_every == 0
                                             or do_freeze):
                     merged = fz.merge_cnn_params(model, stage_base, stage,
                                                  box["active"])
                     rr.test_acc = eval_fn(merged, box["state"], stage)
                 self.history.append(rr)
-                return do_freeze
+                return do_freeze or rolled
 
             # copy before stamping the stage payload: a caller's time
             # model may be shared across runs
@@ -323,7 +384,7 @@ class SmartFreezeServer:
                 select_fn=select_fn, train_fn=train_fn, clients=self.clients,
                 client_ids=list(self.clients), aggregation=self.policy,
                 time_model=tm, availability=self.availability,
-                on_round=on_round,
+                faults=self.faults, on_round=on_round,
                 snapshot_fn=lambda: (box["active"], box["state"]),
                 train_one_fn=train_one_fn,
                 get_model_fn=lambda: (box["active"], box["state"]),
@@ -332,9 +393,32 @@ class SmartFreezeServer:
                             start_round=round_idx)
             round_idx += len(done)
             clock = loop.clock
+            if flags["rollback"]:
+                # unfreeze the watched stage and restore its freeze-time
+                # snapshot, discarding every round trained after it
+                self.rollbacks += 1
+                _log.warning(
+                    "freeze rollback: stage %d diverged after the freeze "
+                    "(ref %.4f, guard %.2f); unfreezing stage %d and "
+                    "restoring its snapshot", stage, rb_armed["ref"],
+                    self.rollback_guard, rb_armed["stage"])
+                params, state = rb_armed["params"], rb_armed["state"]
+                stage = rb_armed["stage"]
+                rb_armed = None
+                recent_losses.clear()
+                continue
             # --- model growth ---
             params = fz.merge_cnn_params(model, params, stage, box["active"])
             state = box["state"]
+            rb_armed = None  # the watched stage survived its probation
+            if (self.freeze_rollback and flags["freeze"]
+                    and self.rollbacks < self.max_rollbacks
+                    and stage + 1 < n_stages):
+                ref = (float(np.mean(recent_losses)) if recent_losses
+                       else float("inf"))
+                rb_armed = {"stage": stage, "params": params, "state": state,
+                            "ref": ref, "bad": 0}
+            stage += 1
         return {"params": params, "state": state, "history": self.history,
                 "rounds": round_idx, "virtual_time": clock}
 
@@ -345,7 +429,8 @@ class FedAvgServer:
     ``FederatedLoop`` as SmartFreeze, so it takes the same ``aggregation``
     / ``time_model`` / ``availability`` knobs (sync, deadline,
     async-buffered) and reports per-round virtual durations in its
-    history. ``device`` is ``SmartFreezeServer``'s."""
+    history; ``faults``, ``screen_updates`` and ``aggregator`` are
+    ``SmartFreezeServer``'s, and so is ``device``."""
 
     def __init__(self, model: CNN, clients: List[SimClient], *,
                  optimizer_fn: Callable[[], Optimizer] = lambda: sgd(0.05),
@@ -357,7 +442,10 @@ class FedAvgServer:
                  aggregation: Union[str, object, None] = None,
                  time_model: Optional[FleetTimeModel] = None,
                  availability: Optional[AvailabilityTrace] = None,
+                 screen_updates: bool = False, aggregator: str = "mean",
+                 faults: Optional[FaultInjector] = None,
                  device="cuda"):
+        _check_aggregator(aggregator)
         self.device = resolve_device(device)
         self.model = model
         self.clients = {c.client_id: c for c in clients}
@@ -373,6 +461,9 @@ class FedAvgServer:
         self.aggregation = aggregation
         self.time_model = time_model
         self.availability = availability
+        self.screen_updates = screen_updates
+        self.aggregator = aggregator
+        self.faults = faults
         self.history: List[RoundResult] = []
 
     def run(self, params, state, *, rounds: int,
@@ -391,7 +482,8 @@ class FedAvgServer:
                              fused=self.fused,
                              compress_ratio=self.compress_ratio,
                              compute_dtype=self.compute_dtype,
-                             device=self.device)
+                             device=self.device, screen=self.screen_updates,
+                             aggregator=self.aggregator)
         rng = np.random.RandomState(self.seed)
         eligible = [cid for cid, c in self.clients.items()
                     if c.memory_bytes >= self.mem_required]
@@ -410,10 +502,10 @@ class FedAvgServer:
             return list(rng.choice(cands, size=min(self.k, len(cands)),
                                    replace=False))
 
-        def train_fn(cohort, r, sequential=None):
+        def train_fn(cohort, r, sequential=None, faults=None):
             box["params"], box["state"], losses = engine.run_round(
                 self.clients, cohort, box["params"], box["state"], r,
-                sequential=sequential)
+                sequential=sequential, faults=faults)
             return losses
 
         def train_one_fn(cid, p, s, r):
@@ -428,7 +520,7 @@ class FedAvgServer:
                              selected=rec.selected,
                              uplink_bytes=engine.last_uplink_bytes,
                              duration=rec.duration, virtual_time=rec.t_end,
-                             dropped=rec.dropped)
+                             dropped=rec.dropped, screened=_screened(engine))
             if eval_fn is not None and rec.round_idx % eval_every == 0:
                 rr.test_acc = eval_fn(box["params"], box["state"],
                                       n_stages - 1)
@@ -443,7 +535,8 @@ class FedAvgServer:
             select_fn=select_fn, train_fn=train_fn, clients=self.clients,
             client_ids=list(self.clients),
             aggregation=self.aggregation or "sync", time_model=tm,
-            availability=self.availability, on_round=on_round,
+            availability=self.availability, faults=self.faults,
+            on_round=on_round,
             snapshot_fn=lambda: (box["params"], box["state"]),
             train_one_fn=train_one_fn,
             get_model_fn=lambda: (box["params"], box["state"]),

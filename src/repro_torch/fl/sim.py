@@ -17,8 +17,13 @@ observation once per virtual tick, and the policy drives it:
     weights; a virtual-clock watchdog re-dispatches slow clients.
 
 ``AvailabilityTrace`` draws per-(client, round) availability and mid-round
-dropout with the reference's splitmix64 hash, bit for bit. Fault injection
-is not ported: ``FederatedLoop`` takes no ``faults`` and no ``mesh``.
+dropout with the reference's splitmix64 hash (``fl/faults.hash_draws``),
+bit for bit. ``FederatedLoop(faults=FaultInjector(...))`` injects faults:
+under sync and deadline a crashed or hung client loses its update while
+its compute still counts toward the barrier, and the corruption kinds
+reach the trainer hook as ``faults={cid: kind}``; the async policy's
+faults are its own (``AsyncBufferedAggregation``). The client mesh is
+not ported: ``FederatedLoop`` takes no ``mesh``.
 """
 from __future__ import annotations
 
@@ -29,11 +34,14 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
                     Union)
 
 import numpy as np
+import torch
 
 from repro_torch.core.time_model import (cohort_round_time, completion_jitter,
                                          completion_times, stage_times,
                                          uplink_times)
-from repro_torch.models.module import tree_map
+from repro_torch.fl.faults import (CORRUPT_KINDS, FaultInjector,
+                                   apply_fault_to_update, hash_draws)
+from repro_torch.models.module import tree_leaves, tree_map
 
 
 @dataclass
@@ -116,25 +124,6 @@ class FleetTimeModel:
         return {int(c): float(t[self._row[int(c)]]) for c in cohort}
 
 
-def _hash_draws(seed: int, round_idx: int, ids: Sequence[int]) -> np.ndarray:
-    """One deterministic uniform per (seed, round, client): a splitmix64
-    hash of the three, independent of cohort order and of which other
-    clients are queried (``repro/fl/faults.py:hash_draws``, bit for bit)."""
-    c1 = np.uint64(0x9E3779B97F4A7C15)
-    c2 = np.uint64(0xBF58476D1CE4E5B9)
-    c3 = np.uint64(0x94D049BB133111EB)
-    with np.errstate(over="ignore"):   # uint64 wraparound is the hash
-        x = (np.asarray(ids, np.uint64) * c1
-             + np.uint64(round_idx % (1 << 63)) * c2
-             + np.uint64(seed % (1 << 63)) * c3)
-        x ^= x >> np.uint64(30)
-        x *= c2
-        x ^= x >> np.uint64(27)
-        x *= c3
-        x ^= x >> np.uint64(31)
-    return (x >> np.uint64(11)).astype(np.float64) / float(1 << 53)
-
-
 @dataclass
 class AvailabilityTrace:
     """Client availability and mid-round dropout, seeded per (client,
@@ -150,14 +139,14 @@ class AvailabilityTrace:
         ids = list(ids)
         if self.p_available >= 1.0 or not ids:
             return ids
-        u = _hash_draws(self.seed, round_idx, ids)
+        u = hash_draws(self.seed, round_idx, ids)
         return [c for c, ui in zip(ids, u) if ui < self.p_available]
 
     def dropouts(self, cohort: Sequence[int], round_idx: int) -> List[int]:
         cohort = list(cohort)
         if self.p_dropout <= 0.0 or not cohort:
             return []
-        u = _hash_draws(self.seed + 1, round_idx, cohort)
+        u = hash_draws(self.seed + 1, round_idx, cohort)
         return [c for c, ui in zip(cohort, u) if ui < self.p_dropout]
 
 
@@ -174,13 +163,15 @@ class RoundRecord:
     policy: str = "sync"
     sequential: bool = False
     staleness: Dict[int, int] = field(default_factory=dict)  # async only
+    faults: Dict[int, str] = field(default_factory=dict)     # injected kinds
     retries: Dict[int, int] = field(default_factory=dict)    # async retries
 
 
 class SyncAggregation:
     """Eq. 7 barrier: everyone selected trains; the round lasts as long as
     the slowest surviving client. A dropped client's update never arrives
-    and costs the barrier nothing."""
+    and costs the barrier nothing. An injected crash or hang loses the
+    client's update but its compute still counts toward the barrier."""
 
     name = "sync"
 
@@ -190,11 +181,14 @@ class SyncAggregation:
         dropped = loop.dropouts(sel, r)
         cohort = [c for c in sel if c not in set(dropped)]
         times = loop.times(sel, r)
-        losses, _ = loop.run_train(cohort, r)
+        sched = loop.fault_schedule(cohort, r)
+        losses, crashed = loop.run_train(cohort, r, schedule=sched)
+        survivors = [c for c in cohort if c not in set(crashed)]
         dur = cohort_round_time([times[c] for c in cohort])
-        return RoundRecord(r, cohort, losses, dropped=dropped,
+        return RoundRecord(r, survivors, losses, dropped=dropped + crashed,
                            t_start=loop.clock, duration=dur,
-                           t_end=loop.clock + dur, policy=self.name)
+                           t_end=loop.clock + dur, policy=self.name,
+                           faults=dict(sched))
 
 
 @dataclass
@@ -205,7 +199,8 @@ class DeadlineAggregation:
     only when at least ``max(min_keep, len(cohort) // 2)`` clients finish;
     ``deadline_s`` is an absolute deadline for any cohort size, which may
     leave nobody. Straggler rounds run the engine's sequential escape
-    hatch (``sequential=True``)."""
+    hatch (``sequential=True``). Injected crashes and hangs are
+    ``SyncAggregation``'s."""
 
     factor: float = 2.0
     deadline_s: Optional[float] = None
@@ -231,16 +226,20 @@ class DeadlineAggregation:
         dropped = loop.dropouts(kept, r)
         cohort = [c for c in kept if c not in set(dropped)]
         seq = True if (straggler_round and self.sequential) else None
-        losses, _ = loop.run_train(cohort, r, sequential=seq)
+        sched = loop.fault_schedule(cohort, r)
+        losses, crashed = loop.run_train(cohort, r, schedule=sched,
+                                         sequential=seq)
+        survivors = [c for c in cohort if c not in set(crashed)]
         late = [c for c in sel if c not in set(kept)]
         if late:  # the server waited until the deadline before aggregating
             dur = float(deadline)
         else:
             dur = cohort_round_time([times[c] for c in cohort])
-        return RoundRecord(r, cohort, losses, dropped=late + dropped,
+        return RoundRecord(r, survivors, losses,
+                           dropped=late + dropped + crashed,
                            t_start=loop.clock, duration=dur,
                            t_end=loop.clock + dur, policy=self.name,
-                           sequential=bool(seq))
+                           sequential=bool(seq), faults=dict(sched))
 
 
 @dataclass
@@ -264,7 +263,15 @@ class AsyncBufferedAggregation:
     whose completion has not landed by ``t_dispatch + timeout_s *
     retry_backoff ** attempt`` is abandoned and re-dispatched from the
     current model, up to ``max_retries`` times, then dropped. The event
-    budget bounds a tick's pops, so a retry storm ends."""
+    budget bounds a tick's pops, so a retry storm ends.
+
+    Faults (the loop's ``faults``): each dispatch draws its kind, a retry
+    on a round index perturbed by its attempt. A crash spends the slot
+    and the client's compute and merges nothing. A hang completes at
+    +inf, so only the watchdog reclaims it; without one the tick parks it
+    and returns short. Corrupted updates go through
+    ``apply_fault_to_update``, and a merge-time screen, armed only with
+    the injector, drops a non-finite delta instead of folding it."""
 
     buffer_size: int = 4
     concurrency: int = 8
@@ -286,6 +293,7 @@ class AsyncBufferedAggregation:
         losses: Dict[int, float] = {}
         staleness: Dict[int, int] = {}
         dropped: List[int] = []
+        faulted: Dict[int, str] = {}
         retries: Dict[int, int] = {}
         clock = t0
         events = 0
@@ -295,8 +303,15 @@ class AsyncBufferedAggregation:
                and events < max_events):
             events += 1
             # (key, seq) is unique, so the heap never compares the trees
-            key, _, cid, base_p, base_s, v0, attempt, t_fin = heapq.heappop(
-                st["in_flight"])
+            entry = heapq.heappop(st["in_flight"])
+            key, _, cid, base_p, base_s, v0, attempt, kind, t_fin = entry
+            if not np.isfinite(key):
+                # a hang with no watchdog: nothing in flight can complete
+                # sooner, so park it and return short
+                heapq.heappush(st["in_flight"], entry)
+                break
+            if kind:
+                faulted[cid] = kind
             if key < t_fin:
                 # the watchdog fired before the completion: abandon it
                 clock = max(clock, key)
@@ -308,11 +323,30 @@ class AsyncBufferedAggregation:
                     self._refill(loop, r, clock)
                 continue
             clock = max(clock, t_fin)
+            if kind == "crash":
+                # compute spent, update lost: free the slot
+                dropped.append(cid)
+                self._refill(loop, r, clock)
+                continue
             p_i, s_i, loss = loop.train_one_fn(cid, base_p, base_s, r)
+            if kind in CORRUPT_KINDS:
+                p_i = apply_fault_to_update(kind, base_p, p_i,
+                                            amplify=loop.faults.amplify)
+                if kind in ("nan", "inf"):
+                    loss = float("nan")
             stale = st["version"] - v0
             w = (loop.client_weight(cid)
                  * (1.0 + stale) ** -self.staleness_power)
             delta = tree_map(lambda a, b: a.float() - b.float(), p_i, base_p)
+            if loop.faults is not None and not all(
+                    bool(torch.isfinite(x).all())
+                    for x in tree_leaves(delta)):
+                # merge-time screen: never fold a non-finite delta into the
+                # running model
+                dropped.append(cid)
+                losses[cid] = loss
+                self._refill(loop, r, clock)
+                continue
             merged.append((delta, s_i, w))
             completed.append(cid)
             losses[cid] = loss
@@ -339,19 +373,25 @@ class AsyncBufferedAggregation:
         return RoundRecord(r, completed, losses, dropped=dropped,
                            t_start=t0, duration=clock - t0, t_end=clock,
                            policy=self.name, staleness=staleness,
-                           retries=retries)
+                           faults=faulted, retries=retries)
 
     def _dispatch(self, loop: "FederatedLoop", r: int, cid: int, now: float,
                   *, attempt: int = 0, times: Optional[Dict] = None,
                   base=None):
         """Push one in-flight entry, keyed by the earlier of its completion
-        and its watchdog deadline."""
+        and its watchdog deadline. Its fault kind is drawn here, a retry's
+        on the round index perturbed by ``7919 * attempt``; a hang
+        completes at +inf."""
         st = loop.async_state
         if times is None:
             times = loop.times([cid], r)
         if base is None:
             base = loop.snapshot_fn()
-        t_fin = now + times[cid]
+        kind = None
+        if loop.faults is not None:
+            kind = loop.faults.schedule(
+                [cid], r if attempt == 0 else r + 7919 * attempt).get(cid)
+        t_fin = np.inf if kind == "hang" else now + times[cid]
         key = t_fin
         if self.timeout_s is not None:
             key = min(t_fin, now + self.timeout_s
@@ -359,7 +399,7 @@ class AsyncBufferedAggregation:
         st["seq"] += 1
         heapq.heappush(st["in_flight"],
                        (key, st["seq"], cid, base[0], base[1],
-                        st["version"], attempt, t_fin))
+                        st["version"], attempt, kind, t_fin))
 
     def _refill(self, loop: "FederatedLoop", r: int, now: float):
         st = loop.async_state
@@ -404,7 +444,10 @@ class FederatedLoop:
       select_fn(round_idx, available_ids) -> cohort ids
       train_fn(cohort, round_idx, *, sequential=None) -> {cid: mean loss};
           runs the round and applies the aggregate to the trainer's model;
-          ``sequential`` forwards the deadline policy's escape hatch
+          ``sequential`` forwards the deadline policy's escape hatch. With
+          a ``faults`` injector the hook also gets ``faults={cid: kind}``
+          on rounds where a corruption kind fired (and only then, so hooks
+          without the argument run clean rounds)
       on_round(RoundRecord) -> truthy to stop (pace freeze, budget, ...)
 
     Async hooks (``AsyncBufferedAggregation`` only):
@@ -415,7 +458,7 @@ class FederatedLoop:
 
     ``time_model=None`` builds the default ``|D_i| / c_i`` model from the
     fleet, or zero times with no fleet; ``availability=None`` makes every
-    client available and drops nobody.
+    client available and drops nobody; ``faults=None`` injects nothing.
     """
 
     select_fn: Callable[[int, List[int]], List[int]] = None
@@ -425,6 +468,7 @@ class FederatedLoop:
     aggregation: Union[str, Any] = "sync"
     time_model: Optional[FleetTimeModel] = None
     availability: Optional[AvailabilityTrace] = None
+    faults: Optional[FaultInjector] = None
     on_round: Optional[Callable[[RoundRecord], Optional[bool]]] = None
     snapshot_fn: Optional[Callable] = None
     train_one_fn: Optional[Callable] = None
@@ -462,15 +506,35 @@ class FederatedLoop:
             return float(self.clients[cid].num_samples)
         return 1.0
 
-    def run_train(self, cohort: Sequence[int], round_idx: int, **kw
-                  ) -> Tuple[Dict[int, float], List[int]]:
+    def fault_schedule(self, cohort: Sequence[int],
+                       round_idx: int) -> Dict[int, str]:
+        """{cid: kind} from the ``FaultInjector`` ({} without one), for
+        any subset of the fleet in any order."""
+        if self.faults is None:
+            return {}
+        return self.faults.schedule(cohort, round_idx)
+
+    def run_train(self, cohort: Sequence[int], round_idx: int, *,
+                  schedule: Optional[Dict[int, str]] = None,
+                  **kw) -> Tuple[Dict[int, float], List[int]]:
         """Train ``cohort`` through ``train_fn``, forwarding ``kw``
-        (``sequential``). Returns ({cid: loss}, crashed); without fault
-        injection nobody crashes and an empty cohort trains nothing."""
+        (``sequential``), under this round's fault ``schedule`` (drawn
+        when None): crashed and hung clients lose their update and come
+        back as the ``crashed`` list, the corruption kinds go to the hook
+        as ``faults=...`` when there are any. Returns ({cid: loss},
+        crashed); nobody left trains nothing."""
         cohort = list(cohort)
-        if not cohort:
-            return {}, []
-        return self.train_fn(cohort, round_idx, **kw), []
+        sched = (self.fault_schedule(cohort, round_idx) if schedule is None
+                 else schedule)
+        crashed = [c for c in cohort if sched.get(c) in ("crash", "hang")]
+        live = [c for c in cohort if sched.get(c) not in ("crash", "hang")]
+        if not live:
+            return {}, crashed
+        corrupt = {c: k for c, k in sched.items()
+                   if k in CORRUPT_KINDS and c in set(live)}
+        if corrupt:
+            kw = dict(kw, faults=corrupt)
+        return self.train_fn(live, round_idx, **kw), crashed
 
     def run(self, n_rounds: int, *, start_round: int = 0) -> List[RoundRecord]:
         """Run ``n_rounds`` ticks with global indices from ``start_round``

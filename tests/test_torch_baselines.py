@@ -186,11 +186,11 @@ def test_heterofl_groups_and_depthfl_depths_match_reference_rules():
 @pytest.mark.parametrize("kw", [dict(faults=None), dict(screen_updates=True),
                                 dict(aggregator="mean")],
                          ids=["faults", "screen_updates", "aggregator"])
-def test_unported_runner_arguments_raise(name, kw):
-    tc = _fleets(TABLE1)[1]
-    with pytest.raises(TypeError):
-        getattr(TB, f"run_{name}")(TCfg(**CFG), tc, rounds=1, device="cpu",
-                                   **kw)
+def test_unported_runner_arguments_raise(reference_init, name, kw):
+    """Once rejected, now ported: each runner accepts ``faults``,
+    ``screen_updates`` and ``aggregator``, and a one-round run with it at
+    Table 1's configuration matches the reference's."""
+    _run_pair(name, TABLE1, **dict(kw, rounds=1))
 
 
 def test_tifl_rejects_unknown_arguments():

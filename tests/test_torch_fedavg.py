@@ -169,10 +169,33 @@ def test_fedavg_without_eligible_clients_returns_at_once():
                                     dict(aggregator="mean"),
                                     dict(use_pallas=False)])
 def test_unported_fedavg_arguments_raise(kwargs):
-    clients = _clients(TVision, t_dirichlet, t_fleet)
-    with pytest.raises(TypeError):
-        TFedAvg(TCNN(TCfg(**CFG), device="cpu"), clients, device="cpu",
-                **kwargs)
+    """``mesh`` and ``use_pallas`` are not ported and raise. ``faults``,
+    ``screen_updates`` and ``aggregator`` are: each is accepted, and a
+    one-round run with it (on the sequential path, whose reference
+    compiles once) matches the reference's."""
+    if "mesh" in kwargs or "use_pallas" in kwargs:
+        clients = _clients(TVision, t_dirichlet, t_fleet)
+        with pytest.raises(TypeError):
+            TFedAvg(TCNN(TCfg(**CFG), device="cpu"), clients, device="cpu",
+                    **kwargs)
+        return
+    params, state = JCNN(JCfg(**CFG)).init(jax.random.PRNGKey(0))
+    j_out = JFedAvg(JCNN(JCfg(**CFG)), _clients(JVision, j_dirichlet,
+                                                 j_fleet),
+                    use_pallas=False, fused=False, **kwargs,
+                    **SRV).run(params, state, rounds=1)
+    t_out = TFedAvg(TCNN(TCfg(**CFG), device="cpu"),
+                    _clients(TVision, t_dirichlet, t_fleet), device="cpu",
+                    fused=False, **kwargs, **SRV).run(
+        to_torch(params), to_torch(state), rounds=1)
+    (jr,), (tr,) = j_out["history"], t_out["history"]
+    assert (tr.selected, tr.screened) == ([int(c) for c in jr.selected],
+                                          jr.screened)
+    np.testing.assert_allclose(tr.loss, jr.loss, **TOL)
+    for a, b in zip(jax.tree.leaves((j_out["params"], j_out["state"])),
+                    tree_leaves(t_out["params"])
+                    + tree_leaves(t_out["state"])):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), **TOL)
 
 
 @pytest.mark.parametrize("kwargs", [dict(ckpt_manager=None),

@@ -81,7 +81,7 @@ MIXED = {2: "int8", 0: "f32", 4: None, 3: "fp16", 1: "int8", 5: "fp16"}
     (2 ** 40 + 3, 2 ** 62 + 11, range(10_000, 10_064)),
     (1, 2, [2 ** 63 + 5, 2 ** 64 - 1])])
 def test_hash_draws_equal_reference_bitwise(seed, round_idx, ids):
-    got = tsim._hash_draws(seed, round_idx, list(ids))
+    got = tsim.hash_draws(seed, round_idx, list(ids))
     want = j_hash_draws(seed, round_idx, list(ids))
     assert got.dtype == want.dtype == np.float64
     np.testing.assert_array_equal(got, want)
@@ -285,10 +285,20 @@ def test_resolve_policy_equals_reference(name):
 
 @pytest.mark.parametrize("kw", [dict(faults=None), dict(mesh=None)])
 def test_loop_rejects_unported_arguments(kw):
-    """Fault injection and the client mesh are not ported: the loop raises
-    rather than ignoring them."""
-    with pytest.raises(TypeError):
-        tsim.FederatedLoop(select_fn=lambda r, a: a, client_ids=[0], **kw)
+    """The client mesh is not ported: the loop raises rather than ignoring
+    it. Fault injection is ported: ``faults`` is accepted, and a one-round
+    run with it records what the reference's does."""
+    if "mesh" in kw:
+        with pytest.raises(TypeError):
+            tsim.FederatedLoop(select_fn=lambda r, a: a, client_ids=[0],
+                               **kw)
+        return
+    recs = {pkg: pkg.FederatedLoop(
+        select_fn=lambda r, a: a,
+        train_fn=lambda cohort, r, sequential=None: {c: 0.5 for c in cohort},
+        client_ids=[0, 1], **kw).run(1) for pkg in (jsim, tsim)}
+    _same_records(recs[tsim], recs[jsim])
+    assert recs[tsim][0].faults == {}
 
 
 def test_async_needs_the_model_hooks():

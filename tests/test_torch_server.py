@@ -38,6 +38,7 @@ from repro_torch.fl.client import batch_index_plan as t_plan
 from repro_torch.fl.client import make_client_fleet as t_fleet
 from repro_torch.fl.server import SmartFreezeServer as TServer
 from repro_torch.models.cnn import CNN as TCNN, CNNConfig as TCfg
+from repro_torch.models.module import tree_leaves
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 CFG = dict(name="tiny", kind="resnet", stage_sizes=(1, 1),
@@ -83,23 +84,11 @@ def test_two_stage_trajectory_matches_reference(monkeypatch):
                    device="cpu", **SRV)
     tparams, tstate = to_torch(params), to_torch(state)
 
-    j_sim = jsrv.bootstrap_similarity(params, state)
     np.testing.assert_allclose(tsrv.bootstrap_similarity(tparams, tstate),
-                               j_sim, rtol=1e-4, atol=1e-5)
-    monkeypatch.setattr(tsrv, "bootstrap_similarity", lambda p, s: j_sim)
-
-    j_ops = {s: jfz.init_cnn_stage_active(jm, params, s,
-                                          jax.random.PRNGKey(SRV["seed"] + s)
-                                          )[1].get("op") for s in range(2)}
-    port_init = tfz.init_cnn_stage_active
-
-    def init_with_reference_op(model, p, stage, generator, **kw):
-        frozen, active = port_init(model, p, stage, generator, **kw)
-        if "op" in active:
-            active["op"] = to_torch(j_ops[stage])
-        return frozen, active
-
-    monkeypatch.setattr(tfz, "init_cnn_stage_active", init_with_reference_op)
+                               jsrv.bootstrap_similarity(params, state),
+                               rtol=1e-4, atol=1e-5)
+    _patch_to_reference(monkeypatch, jsrv, tsrv, jm, params, state,
+                        SRV["seed"])
 
     j_out = jsrv.run(params, state, schedule=[2, 2])
     t_out = tsrv.run(tparams, tstate, schedule=[2, 2])
@@ -123,18 +112,65 @@ def test_two_stage_trajectory_matches_reference(monkeypatch):
         np.testing.assert_allclose(b, np.asarray(a), **TOL)
 
 
+def _patch_to_reference(monkeypatch, jsrv, tsrv, jm, params, state, seed):
+    """The port's server takes the reference's Eq. 8 similarity and each
+    stage's output module (``test_two_stage_trajectory_matches_reference``)."""
+    j_sim = jsrv.bootstrap_similarity(params, state)
+    monkeypatch.setattr(tsrv, "bootstrap_similarity", lambda p, s: j_sim)
+    j_ops = {s: jfz.init_cnn_stage_active(jm, params, s,
+                                          jax.random.PRNGKey(seed + s)
+                                          )[1].get("op") for s in range(2)}
+    port_init = tfz.init_cnn_stage_active
+
+    def init_with_reference_op(model, p, stage, generator, **kw):
+        frozen, active = port_init(model, p, stage, generator, **kw)
+        if "op" in active:
+            active["op"] = to_torch(j_ops[stage])
+        return frozen, active
+
+    monkeypatch.setattr(tfz, "init_cnn_stage_active", init_with_reference_op)
+
+
 @pytest.mark.parametrize("kwargs", [dict(mesh=None), dict(faults=None),
                                     dict(screen_updates=True),
                                     dict(aggregator="mean"),
                                     dict(freeze_rollback=True),
                                     dict(rollback_guard=0.5),
                                     dict(use_pallas=True)])
-def test_unported_server_arguments_raise(kwargs):
+def test_unported_server_arguments_raise(monkeypatch, kwargs):
+    """``mesh`` and ``use_pallas`` are not ported and raise. The defenses'
+    arguments are ported: each is accepted, and a one-round run with it
+    (sequential, uncompressed: the defenses do not compose with
+    ``compress_ratio``) matches the reference's."""
+    jt, jp = _data(JVision, j_dirichlet)
     tt, tp = _data(TVision, t_dirichlet)
-    with pytest.raises(TypeError):
-        TServer(TCNN(TCfg(**CFG), device="cpu"),
-                t_fleet(tt, tp, scenario="low", seed=0), device="cpu",
-                **kwargs)
+    if "mesh" in kwargs or "use_pallas" in kwargs:
+        with pytest.raises(TypeError):
+            TServer(TCNN(TCfg(**CFG), device="cpu"),
+                    t_fleet(tt, tp, scenario="low", seed=0), device="cpu",
+                    **kwargs)
+        return
+    srv = dict(SRV, compress_ratio=None, fused=False, **kwargs)
+    jm = JCNN(JCfg(**CFG))
+    params, state = jm.init(jax.random.PRNGKey(0))
+    jsrv = JServer(jm, j_fleet(jt, jp, scenario="low", seed=0),
+                   use_pallas=False, **srv)
+    tsrv = TServer(TCNN(TCfg(**CFG), device="cpu"),
+                   t_fleet(tt, tp, scenario="low", seed=0), device="cpu",
+                   **srv)
+    _patch_to_reference(monkeypatch, jsrv, tsrv, jm, params, state,
+                        SRV["seed"])
+    j_out = jsrv.run(params, state, schedule=[1, 0])
+    t_out = tsrv.run(to_torch(params), to_torch(state), schedule=[1, 0])
+    (jr,), (tr,) = j_out["history"], t_out["history"]
+    assert (tr.round_idx, tr.stage, tr.selected, tr.screened,
+            tr.rolled_back) == (jr.round_idx, jr.stage, jr.selected,
+                                jr.screened, jr.rolled_back)
+    np.testing.assert_allclose(tr.loss, jr.loss, **TOL)
+    for a, b in zip(jax.tree.leaves((j_out["params"], j_out["state"])),
+                    tree_leaves(t_out["params"])
+                    + tree_leaves(t_out["state"])):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), **TOL)
 
 
 def test_unported_policies_and_run_arguments_raise():
@@ -152,8 +188,8 @@ def test_unported_policies_and_run_arguments_raise():
 
 def test_port_imports_without_jax_or_reference():
     """Every module of the port imports with JAX and the JAX package
-    blocked, the LM, serving, hybrid, B3, tier, policy and baseline slices'
-    modules among them, and registering the ported configs pulls in nothing
+    blocked, the LM, serving, hybrid, B3, tier, policy, baseline and fault
+    slices' modules among them, and registering the ported configs pulls in nothing
     of either; chip_smoke.py imports neither."""
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -172,7 +208,7 @@ def test_port_imports_without_jax_or_reference():
             "'repro_torch.kernels.block_perturb', 'repro_torch.core.pace', "
             "'repro_torch.fl.quant', 'repro_torch.kernels.dequant_matmul', "
             "'repro_torch.fl.sim', 'repro_torch.fl.engine', "
-            "'repro_torch.fl.baselines'):\n"
+            "'repro_torch.fl.baselines', 'repro_torch.fl.faults'):\n"
             "    assert n in names, n\n"
             "from repro_torch import configs\n"
             "assert configs.names() == ['deepseek-coder-33b', 'llama3-8b', "
