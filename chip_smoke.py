@@ -62,6 +62,18 @@ Phases, each of which exits non-zero on failure:
      tolerance, a watchdog retry);
  6g. check the defenses on the card against the port's CPU path on the
      small model: records equal, params allclose;
+ 6h. checkpoint and resume (``phase_resume``): full-width ResNet-18
+     crashed and resumed across a stage-0 freeze, fused with top-k 0.1
+     (every restored tensor equal to the saved one, the records and final
+     params held against an unbroken run, B1 and B3 counted) and
+     sequential under deterministic cuDNN (the resumed trajectory equal
+     bit for bit); round walls with async saves and without, in turns,
+     checkpoint bytes and synchronous save and restore walls; a resume
+     across a cache-tier decision (the restored cache equal to the saved
+     one); ``FedAvgServer``'s selection stream restored; the LM trainer at
+     Llama-3-8B width, depth cut to 4 layers, resumed mid-stage (B4 and B3
+     counted); a small CNN checkpoint crossing between the card and the
+     CPU;
   7. hold the flash attention kernel (B4) against its plain version at the
      Llama-3-8B training shape and its variants (Zamba2-7B's head dim 112,
      hubert-xlarge's 80, the run-time widths 96, 256 and dk 192 with dv
@@ -896,7 +908,8 @@ def _expected_fold_launches(model, params, srv, ticks, stages):
     """B1 launches a run's ticks imply: a sequential round (every round of
     a ``fused=False`` server), or an async completion, folds each client
     alone (one launch a leaf for each client trained); a fused round folds
-    once a leaf for each cache group."""
+    once a leaf for each cache group (one a tier, and one of the clients
+    that recompute)."""
     from repro_torch.core import freezing_cnn as fz
     import torch
     from repro_torch.models.module import tree_leaves
@@ -910,7 +923,7 @@ def _expected_fold_launches(model, params, srv, ticks, stages):
             n += leaves * len(rec.selected)
         else:
             plan = srv._cache_plan(stage)
-            n += leaves * len({plan.get(c) is not None for c in rec.selected})
+            n += leaves * len({plan.get(c) for c in rec.selected})
     return n
 
 
@@ -1883,6 +1896,664 @@ def phase_small_faults_reference():
               f"{[(r.selected, r.dropped, r.faults) for r in g_recs]}, "
               f"screened {[r.screened for r in hist]}, rolled_back "
               f"{[r.rolled_back for r in hist]}")
+
+
+RESUME_PACE = dict(min_rounds=3, mu=2, slope_lambda=0.5)
+# a fused compressed run on the card is not reproducible: B1 sums K > 1
+# rows with atomics in no fixed order, a 1e-7 difference flips entries at
+# the top-k threshold, and error feedback carries the flips. On an H100
+# two unbroken runs of (a)'s setup parted by up to 2.3e-2 on a stage-0
+# loss and 0.35 in relative L2 on their worst leaf, and from stage 1 on
+# they chose different cohorts (clients of near-equal utility), after
+# which their losses parted by 0.12. A resumed fused run is held to the
+# resumed stage's cohorts and losses (rtol 0.1) and to final params and
+# BN state within a relative L2 distance of 0.1, each tree as one
+# vector; the bit-for-bit contract is (b)'s, on the K = 1 path.
+RESUME_LOSS_RTOL = 0.1
+RESUME_PARAMS_REL = 0.1
+# the bf16 LM rerun (its backward sums with atomics): losses rtol 1e-2,
+# perturbations rtol 1e-1
+LM_RESUME_TOL = (1e-2, 1e-1)
+
+
+class _Crash(Exception):
+    pass
+
+
+def _crash_after(n):
+    """An ``eval_fn`` that raises on its (n + 1)-th call."""
+    calls = {"n": 0}
+
+    def eval_fn(p, s, stage):
+        calls["n"] += 1
+        if calls["n"] > n:
+            raise _Crash()
+        return 0.0
+    return eval_fn
+
+
+def _deep_clone(tree):
+    """A copy of a checkpoint tree that shares no memory with it: tensors
+    cloned where they live, numpy arrays copied."""
+    import numpy as np
+    import torch
+    if isinstance(tree, dict):
+        return {k: _deep_clone(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    return np.array(tree, copy=True)
+
+
+class _saved_trees:
+    """Inside the ``with``: (step, a deep clone of the tree as the saving
+    run held it, metadata) of every ``CheckpointManager.save`` that
+    ``keep(step, metadata)`` chooses, the wall ms of every save call, and
+    the managers that saved."""
+
+    def __init__(self, keep=lambda step, meta: True):
+        self.keep = keep
+
+    def __enter__(self):
+        from repro_torch.checkpoint import ckpt
+        self.cls = ckpt.CheckpointManager
+        self.save = save = self.cls.save
+        self.log, self.ms, self.managers = [], [], []
+
+        def saved(mgr, step, tree, metadata=None):
+            if mgr not in self.managers:
+                self.managers.append(mgr)
+            if self.keep(step, metadata):
+                self.log.append((step, _deep_clone(tree),
+                                 dict(metadata or {})))
+            t0 = time.perf_counter()
+            save(mgr, step, tree, metadata)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.cls.save = saved
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.save = self.save
+
+
+class _restored:
+    """Inside the ``with``: what a resuming run restored, as it holds it:
+    ``module``'s ``tree_like`` outputs in call order, the engine's residual
+    pools after ``load_ef_state``, its cache after ``load_cache_state``,
+    and the pace window's card tensors after ``_TensorWindow.load``."""
+
+    def __init__(self, module):
+        self.module = module
+
+    def __enter__(self):
+        from repro_torch.core import pace
+        from repro_torch.fl import engine
+        mod, eng, win = self.module, engine.RoundEngine, pace._TensorWindow
+        self.saved = [(mod, "tree_like", mod.tree_like),
+                      (eng, "load_ef_state", eng.load_ef_state),
+                      (eng, "load_cache_state", eng.load_cache_state),
+                      (win, "load", win.load)]
+        got = {"trees": [], "pools": None, "cache": None, "window": None}
+        like, load_ef, load_cache, load_win = (s[2] for s in self.saved)
+
+        def tree_like(t, r):
+            res = like(t, r)
+            got["trees"].append(_deep_clone(res))
+            return res
+
+        def ef(e, tree):
+            load_ef(e, tree)
+            got["pools"] = [p.clone() for p in e._res_pool]
+
+        def cache(e, tree):
+            load_cache(e, tree)
+            got["cache"] = dict(e._features)
+
+        def window(w, *a):
+            load_win(w, *a)
+            got["window"] = ([t.clone() for t in w.ring],
+                             None if w.anchor is None else w.anchor.clone(),
+                             None if w.prev is None else w.prev.clone())
+        mod.tree_like, eng.load_ef_state = tree_like, ef
+        eng.load_cache_state, win.load = cache, window
+        return got
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+
+def _trees_equal(a, b, what):
+    """Every leaf of ``a`` ``torch.equal`` to ``b``'s; returns the count."""
+    import torch
+    from repro_torch.models.module import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    assert len(la) == len(lb) > 0, (what, len(la), len(lb))
+    for x, y in zip(la, lb):
+        y = torch.as_tensor(y).to(x.device)
+        assert x.dtype == y.dtype and torch.equal(x, y), what
+    return len(la)
+
+
+def _window_equal(window, pace_state):
+    """The restored card window against the saved pace state's host
+    arrays, bit for bit; returns the snapshots compared."""
+    import numpy as np
+    import torch
+    ring, anchor, prev = window
+    n = 0
+    for t, a in zip(ring, np.asarray(pace_state["window"])):
+        assert t.device.type == "cuda"
+        assert torch.equal(t, torch.from_numpy(a).to(t.device))
+        n += 1
+    for t, key in ((anchor, "anchor"), (prev, "prev")):
+        a = np.asarray(pace_state[key])
+        if t is not None and a.size:
+            assert t.device.type == "cuda"
+            assert torch.equal(t, torch.from_numpy(a).to(t.device))
+            n += 1
+    assert n > 0
+    return n
+
+
+def _step_bytes(ckpt_dir, step):
+    d = os.path.join(ckpt_dir, f"step_{step}")
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+def _tree_rel(a, b):
+    """(relative L2 distance of the whole trees, the worst leaf's, max abs
+    difference)."""
+    from repro_torch.models.module import tree_leaves
+    num = den = worst = mx = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        x, y = x.double(), y.double()
+        d2, n2 = float(((x - y) ** 2).sum()), float((x ** 2).sum())
+        num, den = num + d2, den + n2
+        worst = max(worst, math.sqrt(d2 / max(n2, 1e-60)))
+        if x.numel():
+            mx = max(mx, float((x - y).abs().max()))
+    return math.sqrt(num / max(den, 1e-60)), worst, mx
+
+
+def phase_resume(card):
+    """Checkpoint and resume on the card (``checkpoint/ckpt.py``, the
+    servers' ``ckpt_manager`` / ``ckpt_every`` / ``resume``, the LM
+    trainer's ``ckpt_dir`` / ``resume``), with checkpoints written under
+    ``build/resume_ckpt`` and removed after, and deterministic cuDNN
+    through (d):
+
+      a. full-width ResNet-18 on phase 4's fleet (20 clients, 6 a round,
+         batch 32, SGD 0.05, top-k 0.1 with error feedback), a pace
+         controller loose enough that stage 0 freezes (``RESUME_PACE``),
+         ``total_rounds=9``: a run without a break, then one with the
+         async ``CheckpointManager`` every round, crashed by ``eval_fn`` in
+         round 2, and a fresh server resuming it. Every restored tensor
+         (stage base, active tree, BN state, residual pools, the pace
+         window on the card) ``torch.equal`` to what the crashed run held
+         when it saved; the freeze round and the resumed stage's cohorts
+         equal the unbroken run's and its losses within rtol
+         ``RESUME_LOSS_RTOL``, the final params and BN state within a
+         relative L2 distance of ``RESUME_PARAMS_REL`` (B1's atomics make
+         the fused path irreproducible: later cohorts and losses are
+         printed beside a second unbroken run's); B1 by
+         ``_expected_fold_launches``, B3 by the main path's rule with the
+         resumed run's first round continuing its restored window. Then a
+         run with async saves every round and one without, in turns with
+         the first: round walls, the bytes of a stage-0 and a stage-3 step,
+         and synchronous save and restore walls of those steps;
+      b. (a)'s setup with ``fused=False`` (B1 at K = 1): the resumed
+         trajectory ``torch.equal`` to the unbroken one;
+      c. full-width ResNet-18 over 8 clients of 250 samples each
+         (CIFAR-10's 50,000 cut so that a round stays near a second), all 8
+         a round, ``cache_tiers="all"`` under the reference test's memory
+         rule (int8, fp16, f32 and a declined client), schedule [1, 2, 1,
+         1], crashed in stage 1's second round: the restored cache's codes,
+         fp16 values, int8 scales and tiers ``torch.equal`` to the saved
+         ones; the cohorts and cache bytes equal the unbroken run's, losses
+         within rtol ``RESUME_LOSS_RTOL``;
+      d. ``FedAvgServer`` (``fused=False``, top-k 0.1) on (c)'s fleet, 3
+         a round: 4 rounds against 2 checkpointed and a resume to 4, equal
+         selections from the restored rng stream, losses and params within
+         ``POLICY_TOL``;
+      e. ``launch/train.py:train`` at Llama-3-8B width (d_model 4096, GQA
+         32/8 of 128, vocab 128,256, bf16, ``use_pallas``) with its depth
+         cut to 4 layers (a full-depth save holds 16 GB of merged bf16
+         params), 4 stages x 3 rounds of batch 4 x 1024 tokens, saving
+         every second round, crashed in stage 0's third round: the
+         restored merged params, active tree and pace window
+         ``torch.equal`` to the saved ones, the resumed losses and
+         perturbations within ``LM_RESUME_TOL`` of the unbroken run's, B4
+         and B3 counted;
+      f. the small CNN: a card checkpoint continued on the CPU and a CPU
+         checkpoint continued on the card, each within ``POLICY_TOL`` of
+         the other and of an unbroken CPU run.
+
+    Returns {path: (B1 or B4 launches, B3 launches)} of the resumed runs."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint import (CheckpointManager, restore_checkpoint,
+                                        save_checkpoint)
+    from repro_torch.convert import to_numpy, to_torch
+    from repro_torch.core.memory_model import cnn_stage_memory_bytes
+    from repro_torch.fl import server as server_mod
+    from repro_torch.fl.server import FedAvgServer, SmartFreezeServer
+    from repro_torch.kernels import block_perturb, sparse_agg
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.cnn import CNN, CNNConfig, RESNET18
+    from repro_torch.models.module import tree_leaves
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "build", "resume_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    print(f"resume: checkpoints under build/resume_ckpt, disk free "
+          f"{shutil.disk_usage(root).free} bytes")
+    out = {}
+    model = CNN(RESNET18, device="cuda")
+    params, state = model.init(torch.Generator().manual_seed(0))
+    clients, _ = _fleet(10_000, 20, 32, 10)
+
+    def run(srv, name, **kw):
+        with _ticks() as ticks:
+            sparse_agg.launches = block_perturb.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                res = srv.run(params, state, **kw)
+            except _Crash:
+                res = None
+            torch.cuda.synchronize()
+            b1, b3 = sparse_agg.launches, block_perturb.launches
+        secs = time.perf_counter() - t0
+        hist = srv.history if res is None else res["history"]
+        print(f"resume {name}: {len(hist)} rounds recorded in {secs:.2f} s"
+              f"{' (crashed)' if res is None else ''}, round walls ms "
+              + ", ".join(f"{ms:.1f}" for _, ms, _ in ticks)
+              + f" on {card}")
+        return res, ticks, b1, b3
+
+    def crash_resume(name, make, n_ok, run_kw, async_save=True):
+        """Unbroken, crashed and resumed runs of ``make()``'s server, with
+        what the crashed run last saved and what the resumed one
+        restored."""
+        r = {}
+        r["a"], r["a_ticks"], _, _ = run(make(), f"{name} unbroken",
+                                         **run_kw)
+        mgr = CheckpointManager(os.path.join(root, name),
+                                async_save=async_save)
+        r["b_srv"] = make()
+        with _saved_trees() as saved:
+            run(r["b_srv"], f"{name} crashing", ckpt_manager=mgr,
+                ckpt_every=1, eval_fn=_crash_after(n_ok), eval_every=1,
+                **run_kw)
+            mgr.wait()
+        r["last"] = saved.log[-1]
+        del saved.log[:]
+        r["c_srv"] = make()
+        with _restored(server_mod) as got:
+            r["c"], r["c_ticks"], r["b1"], r["b3"] = run(
+                r["c_srv"], f"{name} resumed", ckpt_manager=mgr,
+                ckpt_every=1, resume=True, **run_kw)
+            mgr.wait()
+        r["got"] = got
+        assert r["c"] is not None
+        return r
+
+    def check_restored(name, r):
+        step, tree, meta = r["last"]
+        got = r["got"]
+        n = _trees_equal(got["trees"][0], tree["params"], "stage base")
+        n += _trees_equal(got["trees"][1], tree["state"], "BN state")
+        n += _trees_equal(got["trees"][2], tree["active"], "active")
+        pools = len(got["pools"] or [])
+        if "ef" in tree:
+            assert pools == sum(k.startswith("pool") for k in tree["ef"])
+            for i in range(pools):
+                assert torch.equal(got["pools"][i], tree["ef"][f"pool{i}"])
+        w = _window_equal(got["window"], tree["pace"])
+        shape = tuple(got["pools"][0].shape) if pools else ()
+        print(f"resume {name}: restored step {step} (stage {meta['stage']}, "
+              f"round {meta['round_idx']}): {n} param and state leaves, "
+              f"{pools} residual pools (the first {shape}) and {w} pace "
+              f"snapshots on the card torch.equal to what the crashed run "
+              f"held when it saved")
+
+    def launches_match(name, r):
+        hist = r["c"]["history"]
+        stages = [x.stage for x in hist]
+        b1 = _expected_fold_launches(model, params, r["c_srv"], r["c_ticks"],
+                                     stages)
+        # the first resumed round continues the restored window
+        b3 = _expected_b3(model, params, stages[:1] + stages)
+        print(f"resume {name}: resumed run sparse_cohort_add launches "
+              f"{r['b1']} (expected {b1}), diff_sqnorm launches {r['b3']} "
+              f"(expected {b3})")
+        assert r["b1"] == b1 > 0 and r["b3"] == b3 > 0
+        out[f"resnet18 resume {name}"] = (r["b1"], r["b3"])
+
+    def sf(**kw):
+        return lambda: SmartFreezeServer(
+            model, clients, clients_per_round=COHORT, batch_size=32,
+            compress_ratio=RATIO, seed=0, pace_kwargs=dict(RESUME_PACE),
+            device="cuda", **kw)
+
+    # cuDNN's convolution backward sums with atomics by default; the drift
+    # reorders the bandit's utilities, and on an H100 a resumed fused
+    # run's round-5 cohort differed from its unbroken twin's by a client.
+    # Deterministic cuDNN through (d) leaves B1's atomics as the fused
+    # runs' one difference.
+    torch.backends.cudnn.deterministic = True
+
+    # a. compressed, fused, crash and resume across the stage-0 freeze
+    r = crash_resume("fused", sf(), 2, dict(total_rounds=9))
+    assert r["last"][2]["stage"] == 0 and r["last"][2]["round_idx"] == 1
+    check_restored("fused", r)
+    launches_match("fused", r)
+
+    # the cost of saving: async saves every round and none, in turns with
+    # the unbroken run above; a stage-0 and the last stage-3 step kept
+    walls = {"none": [ms for _, ms, _ in r["a_ticks"]]}
+    mgr = CheckpointManager(os.path.join(root, "timed"))
+    with _saved_trees(lambda step, meta: step == 0 or meta["stage"] == 3) \
+            as saved:
+        _, ticks, _, _ = run(sf()(), "async saves every round",
+                             ckpt_manager=mgr, ckpt_every=1, total_rounds=9)
+        mgr.wait()
+    walls["async"] = [ms for _, ms, _ in ticks]
+    again, ticks, _, _ = run(sf()(), "no saves", total_rounds=9)
+    walls["none, again"] = [ms for _, ms, _ in ticks]
+    print("resume: round walls ms in turns, " + "; ".join(
+        f"{k}: " + ", ".join(f"{w:.1f}" for w in v)
+        for k, v in walls.items()) + f"; async save calls ms "
+        + ", ".join(f"{m:.1f}" for m in saved.ms) + f" on {card}")
+    for step, tree, meta in (saved.log[0], saved.log[-1]):
+        d = os.path.join(root, f"sync_{step}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(d, step, tree, metadata=meta)
+        t_save = time.perf_counter() - t0
+        nbytes = _step_bytes(d, step)
+        t0 = time.perf_counter()
+        back = restore_checkpoint(d, device="cuda")
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        _trees_equal(tree["params"], back["tree"]["params"], "sync params")
+        n_pools = sum(k.startswith("pool") for k in tree.get("ef", {}))
+        print(f"resume: stage {meta['stage']} step {step}: {nbytes} bytes "
+              f"({len(tree_leaves(tree['params']))} stage-base leaves, "
+              f"{n_pools} residual pools), synchronous save "
+              f"{t_save * 1e3:.1f} ms, restore onto the card "
+              f"{t_restore * 1e3:.1f} ms on {card}")
+        shutil.rmtree(d)
+    del saved, back
+
+    # (a)'s trajectory against the unbroken run; a second unbroken run
+    # ("no saves") shows the card's own spread, printed beside it
+    ha, hc = r["a"]["history"], r["b_srv"].history + r["c"]["history"]
+    freeze = [x.round_idx for x in ha if x.frozen]
+    assert freeze and ha[freeze[0]].stage == 0, freeze
+    assert [x.round_idx for x in hc if x.frozen] == freeze
+    assert len(ha) == len(hc) == 9
+    assert [x.stage for x in ha] == [y.stage for y in hc]
+    # in the resumed stage the cohorts are the unbroken run's clients
+    # (their order follows the bandit's utilities, which the drift may
+    # reorder) and the losses within RESUME_LOSS_RTOL; a later stage ranks
+    # clients whose utilities lie within the drift, so its cohorts and
+    # losses are printed beside a second unbroken run's, not gated
+    resumed = r["last"][2]["stage"]
+    for x, y in zip(ha, hc):
+        if x.stage == resumed:
+            assert sorted(x.selected) == sorted(y.selected), (x, y)
+    differ = [x.round_idx for x, y in zip(ha, hc)
+              if sorted(x.selected) != sorted(y.selected)]
+    differ_again = [x.round_idx for x, y in zip(ha, again["history"])
+                    if sorted(x.selected) != sorted(y.selected)]
+    reordered = sum(x.selected != y.selected for x, y in zip(ha, hc))
+    rel_loss = [abs(y.loss - x.loss) / abs(x.loss) for x, y in zip(ha, hc)]
+    spread = [abs(y.loss - x.loss) / abs(x.loss)
+              for x, y in zip(ha, again["history"])]
+    rel = _tree_rel(r["a"]["params"], r["c"]["params"])
+    rel_s = _tree_rel(r["a"]["state"], r["c"]["state"])
+    rel_again = _tree_rel(r["a"]["params"], again["params"])
+    print(f"resume fused: the freeze (round {freeze[0]}) and stage "
+          f"{resumed}'s cohorts equal the unbroken run's; rounds whose "
+          f"cohort differs {differ} (a second unbroken run's {differ_again}),"
+          f" {reordered} cohorts in another order; losses' relative "
+          f"distance by round "
+          + ", ".join(f"{v:.2e}" for v in rel_loss)
+          + f" (a second unbroken run's: "
+          + ", ".join(f"{v:.2e}" for v in spread)
+          + f"); final params' relative L2 {rel[0]:.3e}, worst leaf "
+          f"{rel[1]:.3e}, max abs {rel[2]:.3e} (the second unbroken run's "
+          f"{rel_again[0]:.3e}, {rel_again[1]:.3e}, {rel_again[2]:.3e}); BN "
+          f"state's {rel_s[0]:.3e}; bounds rtol {RESUME_LOSS_RTOL} on "
+          f"stage {resumed}'s losses, {RESUME_PARAMS_REL} on the final "
+          f"params and BN state")
+    assert max(v for v, x in zip(rel_loss, ha)
+               if x.stage == resumed) <= RESUME_LOSS_RTOL
+    assert max(rel[0], rel_s[0]) <= RESUME_PARAMS_REL
+
+    # b. sequential (B1 at K = 1): bit for bit
+    r = crash_resume("sequential", sf(fused=False), 2, dict(total_rounds=9))
+    check_restored("sequential", r)
+    ha, hc = r["a"]["history"], r["b_srv"].history + r["c"]["history"]
+    assert len(ha) == len(hc)
+    for x, y in zip(ha, hc):
+        assert (x.round_idx, x.stage, x.selected, x.loss, x.perturbation,
+                x.frozen) == (y.round_idx, y.stage, y.selected, y.loss,
+                              y.perturbation, y.frozen), (x, y)
+    n = _trees_equal(r["a"]["params"], r["c"]["params"], "sequential params")
+    n += _trees_equal(r["a"]["state"], r["c"]["state"], "sequential state")
+    print(f"resume sequential: the resumed trajectory torch.equal to the "
+          f"unbroken one ({len(ha)} rounds, {n} final leaves, freeze at "
+          f"round {[x.round_idx for x in ha if x.frozen]})")
+    launches_match("sequential", r)
+
+    # c. across a cache-tier decision, on a cut fleet
+    small, _ = _fleet(2_000, 8, 32, 10)
+    small = [dataclasses.replace(x) for x in small]
+    need = lambda x, dt: cnn_stage_memory_bytes(  # noqa: E731
+        model, 1, 32, 32, cache_samples=x.num_samples, cache_dtype=dt)
+    small[0].memory_bytes = need(small[0], "int8") + 1.0
+    small[1].memory_bytes = need(small[1], "float16") + 1.0
+    small[2].memory_bytes = need(small[2], "float32") + 1.0
+    small[3].memory_bytes = cnn_stage_memory_bytes(model, 1, 32, 32) + 1.0
+
+    def tiered():
+        return SmartFreezeServer(model, small, clients_per_round=8,
+                                 batch_size=32, compress_ratio=RATIO, seed=0,
+                                 cache_tiers="all", device="cuda")
+    r = crash_resume("tiered", tiered, 2, dict(schedule=[1, 2, 1, 1]))
+    step, tree, meta = r["last"]
+    assert (step, meta["stage"]) == (1, 1), (step, meta)
+    cache, got = tree["cache"], r["got"]["cache"]
+    ids = [int(c) for c in np.asarray(cache["ids"])]
+    assert sorted(got) == ids
+    tiers = {}
+    for i, cid in enumerate(ids):
+        enc = got[cid]
+        tiers[cid] = enc.tier
+        assert enc.tier == ("f32", "fp16", "int8")[int(cache["tiers"][i])]
+        assert enc.values.device.type == "cuda"
+        assert torch.equal(enc.values, cache[f"val{i}"])
+        if enc.scale is not None or f"scale{i}" in cache:
+            assert torch.equal(enc.scale, cache[f"scale{i}"])
+    assert set(tiers.values()) == {"f32", "fp16", "int8"}, tiers
+    plan = r["c_srv"]._cache_plan(1)
+    assert [plan[c] for c in range(4)] == ["int8", "fp16", "f32", None], plan
+    ha, hc = r["a"]["history"], r["b_srv"].history + r["c"]["history"]
+    for x, y in zip(ha, hc):
+        assert (x.round_idx, x.stage, sorted(x.selected), x.cache_bytes) \
+            == (y.round_idx, y.stage, sorted(y.selected), y.cache_bytes), \
+            (x, y)
+        np.testing.assert_allclose(y.loss, x.loss, rtol=RESUME_LOSS_RTOL)
+    print(f"resume tiered: restored cache of {len(ids)} clients (tiers "
+          f"{tiers}, client 3 declined) torch.equal to the saved codes, fp16 "
+          f"values and int8 scales; cohorts and cache bytes equal the "
+          f"unbroken run's, losses within rtol {RESUME_LOSS_RTOL}")
+    launches_match("tiered", r)
+
+    # d. FedAvg: the selection stream comes back
+
+    def fedavg():
+        return FedAvgServer(model, small, clients_per_round=3,
+                            batch_size=32, compress_ratio=RATIO, seed=4,
+                            fused=False, device="cuda")
+    a, _, _, _ = run(fedavg(), "fedavg unbroken", rounds=4)
+    mgr = CheckpointManager(os.path.join(root, "fedavg"))
+    b_srv = fedavg()
+    run(b_srv, "fedavg 2 rounds", rounds=2, ckpt_manager=mgr, ckpt_every=1)
+    c_srv = fedavg()
+    c, ticks, b1, _ = run(c_srv, "fedavg resumed", rounds=4,
+                          ckpt_manager=mgr, resume=True)
+    torch.backends.cudnn.deterministic = False
+    hc = b_srv.history + c["history"]
+    assert [x.selected for x in a["history"]] == [x.selected for x in hc]
+    np.testing.assert_allclose([x.loss for x in hc],
+                               [x.loss for x in a["history"]], **POLICY_TOL)
+    for x, y in zip(tree_leaves(a["params"]), tree_leaves(c["params"])):
+        torch.testing.assert_close(y, x, **POLICY_TOL)
+    want = len(tree_leaves(params)) * sum(len(rec.selected)
+                                          for rec, _, _ in ticks)
+    picks = [[int(c) for c in x.selected] for x in hc]
+    print(f"resume fedavg: selections {picks} equal the "
+          f"unbroken run's; losses and params within rtol 1e-3, atol 1e-5; "
+          f"sparse_cohort_add launches {b1} (expected {want})")
+    assert b1 == want > 0
+    out["resnet18 fedavg resume"] = (b1, 0)
+
+    # e. the LM trainer at Llama-3-8B width, depth cut to 4 layers
+    del r, a, c, b_srv, c_srv
+    torch.cuda.empty_cache()
+    arch = "llama3-8b-depth4"
+    configs.register(dataclasses.replace(configs.get("llama3-8b"), name=arch,
+                                         num_layers=4))
+    kw = dict(reduced=False, steps=12, batch=4, seq=1024, num_pods=1,
+              use_pallas=True, pace_kwargs=dict(LM_PACE), log_every=100,
+              device="cuda")
+    lm_a = train_mod.train(arch, **kw)
+    draws, real_batch = {"n": 0}, train_mod.make_lm_batch
+
+    def crashing_batch(*a, **k):
+        draws["n"] += 1
+        if draws["n"] == 3:
+            raise _Crash()
+        return real_batch(*a, **k)
+    ckpt_dir = os.path.join(root, "lm")
+    train_mod.make_lm_batch = crashing_batch
+    try:
+        with _saved_trees() as saved:
+            try:
+                train_mod.train(arch, ckpt_dir=ckpt_dir, ckpt_every=2, **kw)
+            except _Crash:
+                pass
+            # the process died after round 1's save had landed
+            for m in saved.managers:
+                m.wait()
+    finally:
+        train_mod.make_lm_batch = real_batch
+    step, tree, meta = saved.log[-1]
+    save_ms = saved.ms
+    del saved
+    with _restored(train_mod) as got:
+        fa.launches = block_perturb.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm_c = train_mod.train(arch, ckpt_dir=ckpt_dir, ckpt_every=1000,
+                               resume=True, **kw)
+        torch.cuda.synchronize()
+        lm_secs = time.perf_counter() - t0
+        flash, b3 = fa.launches, block_perturb.launches
+    cfg = lm_c["config"]
+    n = _trees_equal(got["trees"][0], tree["params"], "LM merged params")
+    n += _trees_equal(got["trees"][1], tree["active"], "LM active")
+    w = _window_equal(got["window"], tree["pace"])
+    print(f"resume {arch}: restored step {step} (stage {meta['stage']} "
+          f"round {meta['round']}): {n} merged-param and active leaves (the "
+          f"output module among them) and {w} pace snapshots on the card "
+          f"torch.equal to what the crashed run held when it saved; its "
+          f"async save calls ms " + ", ".join(f"{m:.1f}" for m in save_ms))
+    want, hist = lm_a["history"][meta["global_round"] + 1:], lm_c["history"]
+    assert [(h["stage"], h["round"]) for h in hist] == \
+        [(h["stage"], h["round"]) for h in want] and len(hist) == 10
+    rtol_loss, rtol_p = LM_RESUME_TOL
+    worst = [0.0, 0.0]
+    for x, y in zip(want, hist):
+        np.testing.assert_allclose(y["loss"], x["loss"], rtol=rtol_loss)
+        worst[0] = max(worst[0], abs(y["loss"] - x["loss"]) / abs(x["loss"]))
+        assert (x["perturbation"] is None) == (y["perturbation"] is None)
+        if x["perturbation"] is not None:
+            np.testing.assert_allclose(y["perturbation"], x["perturbation"],
+                                       rtol=rtol_p)
+            worst[1] = max(worst[1], abs(y["perturbation"]
+                                         - x["perturbation"])
+                           / abs(x["perturbation"]))
+    assert hist[0]["perturbation"] is not None
+    flash_want = _expected_lm_launches(cfg, hist)[0]
+    b3_want = _expected_lm_launches(cfg, hist[:1] + hist)[2]
+    print(f"resume {arch}: {len(hist)} resumed rounds in {lm_secs:.2f} s "
+          f"(init and the final save included) on {card}; losses within "
+          f"rtol {rtol_loss} (worst {worst[0]:.2e}), perturbations within "
+          f"rtol {rtol_p} (worst {worst[1]:.2e}) of the unbroken run's; "
+          f"flash_attention launches {flash} (expected {flash_want}), "
+          f"diff_sqnorm launches {b3} (expected {b3_want})")
+    assert flash == flash_want > 0 and b3 == b3_want > 0
+    out["llama3-8b resume"] = (flash, b3)
+    del lm_a, lm_c, got, tree
+    shutil.rmtree(ckpt_dir)
+    torch.cuda.empty_cache()
+
+    # f. a checkpoint crosses between the card and the CPU
+    cfg = CNNConfig("small", "resnet", stage_sizes=(1, 1),
+                    stage_channels=(8, 16), num_classes=4)
+    tiny, _ = _fleet(256, 4, 16, 4)
+    p0, s0 = CNN(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+
+    def small(device):
+        return SmartFreezeServer(CNN(cfg, device=device), tiny,
+                                 clients_per_round=3, batch_size=16,
+                                 compress_ratio=1.0, seed=0, device=device)
+
+    def on(device, t):
+        return to_torch(to_numpy(t), device)
+    sched = dict(schedule=[3, 2])
+    unbroken = small("cpu").run(on("cpu", p0), on("cpu", s0), **sched)
+    conts = {}
+    for writer, reader in (("cuda", "cpu"), ("cpu", "cuda")):
+        mgr = CheckpointManager(os.path.join(root, f"{writer}_to_{reader}"))
+        b = small(writer)
+        try:
+            b.run(on(writer, p0), on(writer, s0), ckpt_manager=mgr,
+                  ckpt_every=1, eval_fn=_crash_after(2), eval_every=1,
+                  **sched)
+        except _Crash:
+            pass
+        mgr.wait()
+        c = small(reader).run(on(reader, p0), on(reader, s0),
+                              ckpt_manager=mgr, ckpt_every=1, resume=True,
+                              **sched)
+        mgr.wait()
+        assert len(b.history) == 2
+        conts[reader] = (b.history + c["history"], c)
+    for x_hist, x in (conts["cpu"], (unbroken["history"], unbroken)):
+        y_hist, y = conts["cuda"]
+        assert [h.selected for h in x_hist] == [h.selected for h in y_hist]
+        np.testing.assert_allclose([h.loss for h in y_hist],
+                                   [h.loss for h in x_hist], **POLICY_TOL)
+        for a, b in zip(tree_leaves(x["params"]) + tree_leaves(x["state"]),
+                        tree_leaves(y["params"]) + tree_leaves(y["state"])):
+            np.testing.assert_allclose(b.cpu().numpy(), a.cpu().numpy(),
+                                       **POLICY_TOL)
+    print("resume small: a card checkpoint continued on the CPU and a CPU "
+          "checkpoint continued on the card agree with each other and with "
+          "an unbroken CPU run (selections equal, losses and params rtol "
+          "1e-3, atol 1e-5)")
+    shutil.rmtree(root)
+    print(f"resume phase seconds {time.perf_counter() - t_phase:.1f}")
+    return out
 
 
 # (name, B, S, Hq, Hkv, d, dtype, causal), d an int or (dk, dv): the first
@@ -3743,6 +4414,7 @@ def main():
     phase_small_baselines_reference()
     faults = phase_faults(card)
     phase_small_faults_reference()
+    resume = phase_resume(card)
     flash = phase_flash_attention(logs)
     (llama_flash, _, llama_b3), params, cfg = phase_lm_main_path(card)
     phase_lm_profile(card, params, cfg, exact_raises=True)
@@ -3781,10 +4453,14 @@ def main():
         {f"resnet18 {name}": b1 for name, b1 in baselines.items()})
     entry["launches_by_path"].update(
         {name: b1 for name, (b1, _) in faults.items() if b1})
+    entry["launches_by_path"].update(
+        {name: b1 for name, (b1, _) in resume.items()
+         if name.startswith("resnet18")})
     entry["launches"] = sum(entry["launches_by_path"].values())
-    flash["launches"] = llama_flash + hybrid_flash
-    flash["launches_by_path"] = {"llama3-8b train": llama_flash,
-                                 "zamba2-7b train": hybrid_flash}
+    flash["launches_by_path"] = {
+        "llama3-8b train": llama_flash, "zamba2-7b train": hybrid_flash,
+        "llama3-8b resume": resume["llama3-8b resume"][0]}
+    flash["launches"] = sum(flash["launches_by_path"].values())
     decode["launches"] = llama_decode + hybrid_decode
     decode["launches_by_path"] = {"llama3-8b serve": llama_decode,
                                   "zamba2-7b serve": hybrid_decode}
@@ -3796,6 +4472,8 @@ def main():
         {f"resnet18 {name}": b3 for name, (_, b3) in policies.items()})
     perturb["launches_by_path"].update(
         {name: b3 for name, (_, b3) in faults.items()})
+    perturb["launches_by_path"].update(
+        {name: b3 for name, (_, b3) in resume.items() if b3})
     perturb["launches"] = sum(perturb["launches_by_path"].values())
     dequant["launches_by_path"] = {
         "resnet18 quant-aware int8 f32": qa["f32"],

@@ -54,10 +54,10 @@ from repro_torch.fl.client import SimClient, batch_index_plan
 from repro_torch.fl.compression import ingraph_compress_leaf, topk_keep
 from repro_torch.fl.faults import (CORRUPT_KINDS, FAULT_CODE,
                                    apply_fault_to_update, corrupt_codes)
-from repro_torch.fl.quant import (EncodedFeatures, cast_floating,
-                                  encode_features, feature_batch_arrays,
-                                  make_input_cast_loss, make_tiered_loss,
-                                  normalize_tier)
+from repro_torch.fl.quant import (CACHE_TIERS, EncodedFeatures,
+                                  cast_floating, encode_features,
+                                  feature_batch_arrays, make_input_cast_loss,
+                                  make_tiered_loss, normalize_tier)
 from repro_torch.models.module import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim import (Optimizer, apply_updates,
                                clip_by_global_norm)
@@ -453,6 +453,8 @@ class RoundEngine:
                                                     repr=False)
     _res_pool: List[torch.Tensor] = field(default_factory=list, repr=False)
     _res_row: Dict[int, int] = field(default_factory=dict, repr=False)
+    _cache_version: int = field(default=0, repr=False)
+    _cache_saved_version: int = field(default=-1, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -471,6 +473,7 @@ class RoundEngine:
             with torch.no_grad():
                 enc = encode_features(self.feature_fn(x), tier)
             self._features[client.client_id] = enc
+            self._cache_version += 1
         return enc
 
     def cache_nbytes(self) -> int:
@@ -481,6 +484,50 @@ class RoundEngine:
     def cache_tiers(self) -> Dict[int, str]:
         """The tier each cached client is stored at."""
         return {cid: enc.tier for cid, enc in self._features.items()}
+
+    def cache_state(self) -> Optional[Dict[str, Any]]:
+        """Per-client tiers and encoded features (int8 scales included) as
+        checkpointable leaves, so a resumed run consumes the bytes the
+        crashed run trained on. The values are the live cache tensors
+        (``CheckpointManager.save`` copies them). None when nothing is
+        cached."""
+        if not self._features:
+            return None
+        cids = sorted(self._features)
+        out = {"ids": np.asarray(cids, np.int64),
+               "tiers": np.asarray([CACHE_TIERS.index(self._features[c].tier)
+                                    for c in cids], np.int64)}
+        for i, cid in enumerate(cids):
+            enc = self._features[cid]
+            out[f"val{i}"] = enc.values
+            if enc.scale is not None:
+                out[f"scale{i}"] = enc.scale
+        return out
+
+    def cache_state_if_changed(self) -> Optional[Dict[str, Any]]:
+        """``cache_state`` only when the cache changed since the last call:
+        within a stage it stops changing once every participant is
+        encoded, and a checkpoint without a cache resumes by encoding the
+        features anew from the restored frozen tree."""
+        if (not self._features
+                or self._cache_version == self._cache_saved_version):
+            return None
+        self._cache_saved_version = self._cache_version
+        return self.cache_state()
+
+    def load_cache_state(self, tree: Dict[str, Any]) -> None:
+        """Restore ``cache_state`` output onto the engine's device at the
+        stored dtypes."""
+        self._features = {}
+        tiers = np.asarray(tree["tiers"])
+        for i, cid in enumerate(np.asarray(tree["ids"])):
+            scale = tree.get(f"scale{i}")
+            self._features[int(cid)] = EncodedFeatures(
+                CACHE_TIERS[int(tiers[i])],
+                torch.as_tensor(tree[f"val{i}"]).to(self.device),
+                None if scale is None
+                else torch.as_tensor(scale).to(self.device))
+        self._cache_version += 1
 
     # ----- error-feedback residual state (on device, per client) -----
 
@@ -506,6 +553,32 @@ class RoundEngine:
         """This client's per-leaf error-feedback residual vectors."""
         row = self._res_row[cid]
         return [p[row] for p in self._res_pool]
+
+    def ef_state(self) -> Optional[Dict[str, Any]]:
+        """Error-feedback residual pools (the live [cap, L] f32 tensors,
+        which ``CheckpointManager.save`` copies) and the client -> row map
+        as checkpointable leaves; None when nothing is carried."""
+        if not self._res_pool:
+            return None
+        cids = sorted(self._res_row)
+        return {"rows_ids": np.asarray(cids, np.int64),
+                "rows_idx": np.asarray([self._res_row[c] for c in cids],
+                                       np.int64),
+                **{f"pool{i}": p for i, p in enumerate(self._res_pool)}}
+
+    def load_ef_state(self, tree: Dict[str, Any]) -> None:
+        """Restore ``ef_state`` output: a resumed compressed run carries
+        each client's untransmitted residual forward, as f32 pools on the
+        engine's device."""
+        self._res_row = {int(c): int(i) for c, i in
+                         zip(np.asarray(tree["rows_ids"]),
+                             np.asarray(tree["rows_idx"]))}
+        pools, i = [], 0
+        while f"pool{i}" in tree:
+            pools.append(torch.as_tensor(tree[f"pool{i}"]).to(
+                device=self.device, dtype=torch.float32))
+            i += 1
+        self._res_pool = pools
 
     def per_client_uplink_bytes(self, params) -> int:
         """One client's uplink payload for the current stage."""

@@ -36,11 +36,22 @@ of the clients whose memory holds it, on the same loop and with the same
 policy, availability, ``fused``, ``compress_ratio``, ``compute_dtype``,
 ``faults``, ``screen_updates`` and ``aggregator`` knobs.
 
+Checkpoint and resume ride on ``checkpoint.CheckpointManager``
+(``run(..., ckpt_manager=..., ckpt_every=N, resume=True)``): every N
+rounds and at pace freezes the stage base, the active tree, BN state, the
+pace controller's window, the selector and its bandit, the ``_last_loss``
+table, the error-feedback residual pools, the feature cache (when it
+changed since the last save) and the virtual clock are saved, so a
+resumed run continues bit for bit, across stage freezes and cache-tier
+decisions alike, under the sync and deadline policies. The rollback's
+armed state and the async-buffered policy's in-flight clients are not
+saved, as in the reference. ``FedAvgServer`` saves its params, BN state,
+residual pools and selection stream.
+
 Not ported yet, and rejected with ``TypeError`` rather than ignored:
-``mesh`` and ``use_pallas``, and ``run``'s ``ckpt_manager``,
-``ckpt_every`` and ``resume`` (checkpoints come with their own slice). The
-compressed fold always goes through ``kernels.ops.sparse_cohort_add``: a
-CUDA launch on the card, the plain version on the CPU.
+``mesh`` and ``use_pallas``. The compressed fold always goes through
+``kernels.ops.sparse_cohort_add``: a CUDA launch on the card, the plain
+version on the CPU.
 """
 from __future__ import annotations
 
@@ -67,7 +78,11 @@ from repro_torch.fl.engine import AGGREGATORS, RoundEngine
 from repro_torch.fl.faults import FaultInjector
 from repro_torch.fl.sim import (AvailabilityTrace, DeadlineAggregation,
                                 FederatedLoop, FleetTimeModel,
-                                SyncAggregation, resolve_policy)
+                                SyncAggregation, load_selector_state,
+                                pack_float_map, pack_rng_state,
+                                resolve_policy, selector_state_tree,
+                                tree_like, unpack_float_map,
+                                unpack_rng_state)
 from repro_torch.models.cnn import CNN
 from repro_torch.models.module import tree_leaves
 from repro_torch.optim import Optimizer, sgd
@@ -256,26 +271,55 @@ class SmartFreezeServer:
 
     def run(self, params, state, *, eval_fn: Optional[Callable] = None,
             eval_every: int = 10, total_rounds: Optional[int] = None,
-            schedule: Optional[List[int]] = None) -> Dict:
+            schedule: Optional[List[int]] = None, ckpt_manager=None,
+            ckpt_every: int = 0, resume: bool = False) -> Dict:
         """schedule: optional fixed rounds per stage (pace-controller
         ablation). ``eval_fn(params, state, stage)`` runs every
-        ``eval_every`` rounds and at pace freezes."""
+        ``eval_every`` rounds and at pace freezes. ``ckpt_manager`` /
+        ``ckpt_every``: save the experiment every N completed rounds and
+        at freezes; ``resume=True`` restores the newest committed step and
+        continues the loss, perturbation and selection series bit for
+        bit."""
         model = self.model
         n_stages = len(model.cfg.stage_sizes)
         budget = total_rounds or self.rounds_per_stage * n_stages
         clock = 0.0
         round_idx = 0
-        self.selector.fit_communities(self.bootstrap_similarity(params, state))
+        start_stage = 0
+        restored = None
+        if resume and ckpt_manager is not None:
+            try:
+                restored = ckpt_manager.restore()
+            except FileNotFoundError:
+                restored = None
+        if restored is None:
+            self.selector.fit_communities(
+                self.bootstrap_similarity(params, state))
+        else:
+            tree, meta = restored["tree"], restored["metadata"]
+            load_selector_state(self.selector, tree["selector"])
+            self._last_loss = unpack_float_map(tree["last_loss"])
+            params = tree_like(params, tree["params"])
+            state = tree_like(state, tree["state"])
+            clock = float(meta["clock"])
+            round_idx = int(meta["round_idx"]) + 1
+            start_stage = int(meta["stage"])
 
         # freeze rollback: armed right after a pace freeze with the merged
         # model and the pre-freeze loss reference; the next stage's rounds
-        # are watched for a regression past the guard band
+        # are watched for a regression past the guard band. The armed
+        # state is not saved: a resumed run arms at its next freeze
         rb_armed: Optional[Dict] = None
         recent_losses: List[float] = []
-        stage = 0
+        stage = start_stage
         while stage < n_stages:
+            # a restored mid-stage step, consumed by the stage it names
+            mid = (restored["metadata"] if restored is not None
+                   and stage == start_stage else None)
             if schedule is not None:
                 plan_rounds = schedule[stage]
+            elif mid is not None:
+                plan_rounds = int(mid["plan_rounds"])
             else:
                 # pace-adaptive budget: early freezes hand their unused
                 # rounds to later stages (>= 1 round per remaining stage)
@@ -285,7 +329,18 @@ class SmartFreezeServer:
                 model, params, stage,
                 torch.Generator().manual_seed(self.seed + stage),
                 op_kind=self.op_kind)
+            r_in_stage = 0
+            if mid is not None:
+                active = tree_like(active, restored["tree"]["active"])
+                pace.load_state_dict(restored["tree"]["pace"])
+                r_in_stage = int(mid["r_in_stage"]) + 1
             engine = self._stage_engine(stage, frozen, state)
+            if mid is not None and "ef" in restored["tree"]:
+                engine.load_ef_state(restored["tree"]["ef"])
+            if mid is not None and "cache" in restored["tree"]:
+                # the exact cached bytes (tiers and int8 scales) the
+                # crashed run trained on
+                engine.load_cache_state(restored["tree"]["cache"])
             cache_ok = self._cache_plan(stage)
             self.cache_tier_plan = cache_ok
             mem_req = cnn_stage_memory_bytes(model, stage, self.batch_size,
@@ -293,6 +348,8 @@ class SmartFreezeServer:
             stage_base = params
             box = {"active": active, "state": state}
             flags = {"freeze": False, "rollback": False}
+            stage_done = mid is not None and (
+                bool(mid.get("frozen")) or r_in_stage >= plan_rounds)
             time_fn = lambda ci: ci.num_samples / ci.capability
 
             def select_fn(r, avail):
@@ -367,6 +424,13 @@ class SmartFreezeServer:
                                                  box["active"])
                     rr.test_acc = eval_fn(merged, box["state"], stage)
                 self.history.append(rr)
+                if ckpt_manager is not None and ckpt_every and (
+                        (rec.round_idx + 1) % ckpt_every == 0
+                        or do_freeze):
+                    self._save_ckpt(
+                        ckpt_manager, rec, stage, stage_base, box, pace,
+                        engine, plan_rounds,
+                        rec.round_idx - round_idx + r_in_stage, do_freeze)
                 return do_freeze or rolled
 
             # copy before stamping the stage payload: a caller's time
@@ -389,10 +453,13 @@ class SmartFreezeServer:
                 train_one_fn=train_one_fn,
                 get_model_fn=lambda: (box["active"], box["state"]),
                 set_model_fn=set_model_fn, clock=clock)
-            done = loop.run(max(min(plan_rounds, budget - round_idx), 0),
-                            start_round=round_idx)
+            # a restored step that froze or finished its stage runs nothing
+            done = loop.run(0 if stage_done else max(
+                min(plan_rounds - r_in_stage, budget - round_idx), 0),
+                start_round=round_idx)
             round_idx += len(done)
             clock = loop.clock
+            restored = None  # consumed; later stages start fresh
             if flags["rollback"]:
                 # unfreeze the watched stage and restore its freeze-time
                 # snapshot, discarding every round trained after it
@@ -421,6 +488,25 @@ class SmartFreezeServer:
             stage += 1
         return {"params": params, "state": state, "history": self.history,
                 "rounds": round_idx, "virtual_time": clock}
+
+    def _save_ckpt(self, mgr, rec, stage, stage_base, box, pace, engine,
+                   plan_rounds, r_in_stage, frozen_flag):
+        tree = {"params": stage_base, "active": box["active"],
+                "state": box["state"], "pace": pace.state_dict(),
+                "selector": selector_state_tree(self.selector),
+                "last_loss": pack_float_map(self._last_loss)}
+        ef = engine.ef_state()
+        if ef is not None:
+            tree["ef"] = ef
+        # only when the cache was filled or re-tiered since the last save:
+        # a checkpoint without one re-encodes from the restored frozen tree
+        cache = engine.cache_state_if_changed()
+        if cache is not None:
+            tree["cache"] = cache
+        mgr.save(rec.round_idx, tree, metadata={
+            "stage": stage, "round_idx": rec.round_idx,
+            "r_in_stage": int(r_in_stage), "plan_rounds": int(plan_rounds),
+            "clock": float(rec.t_end), "frozen": bool(frozen_flag)})
 
 
 class FedAvgServer:
@@ -467,9 +553,14 @@ class FedAvgServer:
         self.history: List[RoundResult] = []
 
     def run(self, params, state, *, rounds: int,
-            eval_fn: Optional[Callable] = None, eval_every: int = 10) -> Dict:
+            eval_fn: Optional[Callable] = None, eval_every: int = 10,
+            ckpt_manager=None, ckpt_every: int = 0,
+            resume: bool = False) -> Dict:
         """``eval_fn(params, state, last_stage)`` runs every
-        ``eval_every`` rounds."""
+        ``eval_every`` rounds. ``ckpt_manager`` / ``ckpt_every`` save the
+        params, BN state, residual pools and the selection stream every N
+        rounds; ``resume=True`` continues from the newest committed
+        step."""
         model = self.model
         n_stages = len(model.cfg.stage_sizes)
 
@@ -488,9 +579,24 @@ class FedAvgServer:
         eligible = [cid for cid, c in self.clients.items()
                     if c.memory_bytes >= self.mem_required]
         participation = len(eligible) / len(self.clients)
-        if not eligible or rounds <= 0:
+        clock = 0.0
+        start_round = 0
+        if resume and ckpt_manager is not None:
+            try:
+                ck = ckpt_manager.restore()
+            except FileNotFoundError:
+                ck = None
+            if ck is not None:
+                params = tree_like(params, ck["tree"]["params"])
+                state = tree_like(state, ck["tree"]["state"])
+                rng = unpack_rng_state(ck["tree"]["rng"])
+                if "ef" in ck["tree"]:
+                    engine.load_ef_state(ck["tree"]["ef"])
+                clock = float(ck["metadata"]["clock"])
+                start_round = int(ck["metadata"]["round_idx"]) + 1
+        if not eligible or start_round >= rounds:
             return {"params": params, "state": state, "history": self.history,
-                    "participation": participation, "virtual_time": 0.0}
+                    "participation": participation, "virtual_time": clock}
 
         box = {"params": params, "state": state}
         elig_set = set(eligible)
@@ -525,6 +631,15 @@ class FedAvgServer:
                 rr.test_acc = eval_fn(box["params"], box["state"],
                                       n_stages - 1)
             self.history.append(rr)
+            if ckpt_manager is not None and ckpt_every and (
+                    (rec.round_idx + 1) % ckpt_every == 0):
+                tree = {"params": box["params"], "state": box["state"],
+                        "rng": pack_rng_state(rng)}
+                ef = engine.ef_state()
+                if ef is not None:
+                    tree["ef"] = ef
+                ckpt_manager.save(rec.round_idx, tree, metadata={
+                    "round_idx": rec.round_idx, "clock": float(rec.t_end)})
             return False
 
         tm = (dataclasses.replace(self.time_model)
@@ -540,8 +655,9 @@ class FedAvgServer:
             snapshot_fn=lambda: (box["params"], box["state"]),
             train_one_fn=train_one_fn,
             get_model_fn=lambda: (box["params"], box["state"]),
-            set_model_fn=lambda p, s: box.update(params=p, state=s))
-        loop.run(rounds)
+            set_model_fn=lambda p, s: box.update(params=p, state=s),
+            clock=clock)
+        loop.run(rounds - start_round, start_round=start_round)
         return {"params": box["params"], "state": box["state"],
                 "history": self.history, "participation": participation,
                 "virtual_time": loop.clock}

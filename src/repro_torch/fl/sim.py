@@ -24,6 +24,11 @@ its compute still counts toward the barrier, and the corruption kinds
 reach the trainer hook as ``faults={cid: kind}``; the async policy's
 faults are its own (``AsyncBufferedAggregation``). The client mesh is
 not ported: ``FederatedLoop`` takes no ``mesh``.
+
+The checkpoint helpers (``pack_rng_state``, ``selector_state_tree``,
+``pack_float_map``, their inverses, and ``tree_like``, which casts a
+restored tree onto a live one's dtypes and devices) give the servers and
+the LM trainer the reference's checkpoint leaves.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.ckpt import pack_ragged, unpack_ragged
 from repro_torch.core.time_model import (cohort_round_time, completion_jitter,
                                          completion_times, stage_times,
                                          uplink_times)
@@ -549,3 +555,93 @@ class FederatedLoop:
             if self.on_round is not None and self.on_round(rec):
                 break
         return out
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint/resume helpers (arrays only, CheckpointManager-ready)
+# ---------------------------------------------------------------------------
+
+
+def pack_rng_state(rs: np.random.RandomState) -> Dict[str, np.ndarray]:
+    """A numpy RandomState stream as checkpointable arrays."""
+    name, keys, pos, has_gauss, cached = rs.get_state()
+    assert name == "MT19937"
+    return {"keys": np.asarray(keys, np.uint32),
+            "pos": np.asarray([pos, has_gauss], np.int64),
+            "gauss": np.asarray([cached], np.float64)}
+
+
+def unpack_rng_state(tree: Dict[str, np.ndarray]) -> np.random.RandomState:
+    rs = np.random.RandomState(0)
+    pos, has_gauss = (int(x) for x in np.asarray(tree["pos"]))
+    rs.set_state(("MT19937", np.asarray(tree["keys"], np.uint32), pos,
+                  has_gauss, float(np.asarray(tree["gauss"])[0])))
+    return rs
+
+
+def selector_state_tree(selector) -> Dict[str, np.ndarray]:
+    """A selector's state: fitted communities (ragged -> flat + offsets),
+    the epsilon-greedy bandit's utility and recency tables and its round
+    counter, which keys the per-round ``mix_seed`` streams. A selector
+    with its own ``state_dict`` serializes through it."""
+    if hasattr(selector, "state_dict"):
+        return selector.state_dict()
+    t: Dict[str, np.ndarray] = {}
+    comms = getattr(selector, "_communities", None)
+    if comms:
+        ragged = pack_ragged(comms)
+        t["comm_flat"], t["comm_offsets"] = ragged["flat"], ragged["offsets"]
+    bandit = getattr(selector, "_bandit", None)
+    if bandit is not None:
+        ids = sorted(bandit._util)
+        t["bandit_ids"] = np.asarray(ids, np.int64)
+        t["bandit_util"] = np.asarray([bandit._util[i] for i in ids],
+                                      np.float64)
+        t["bandit_seen"] = np.asarray(
+            [bandit._last_seen.get(i, -1) for i in ids], np.int64)
+        t["bandit_round"] = np.asarray([bandit._round], np.int64)
+    if hasattr(selector, "_round"):
+        t["round"] = np.asarray([selector._round], np.int64)
+    return t
+
+
+def load_selector_state(selector, tree: Dict[str, np.ndarray]) -> None:
+    if hasattr(selector, "load_state_dict"):
+        selector.load_state_dict(tree)
+        return
+    if "comm_flat" in tree:
+        selector._communities = unpack_ragged(
+            {"flat": tree["comm_flat"], "offsets": tree["comm_offsets"]})
+    bandit = getattr(selector, "_bandit", None)
+    if bandit is not None and "bandit_ids" in tree:
+        ids = [int(i) for i in np.asarray(tree["bandit_ids"])]
+        bandit._util = {i: float(u) for i, u in
+                        zip(ids, np.asarray(tree["bandit_util"]))}
+        bandit._last_seen = {i: int(s) for i, s in
+                             zip(ids, np.asarray(tree["bandit_seen"]))
+                             if int(s) >= 0}
+        bandit._round = int(np.asarray(tree["bandit_round"])[0])
+    if hasattr(selector, "_round") and "round" in tree:
+        selector._round = int(np.asarray(tree["round"])[0])
+
+
+def pack_float_map(d: Dict[int, float]) -> Dict[str, np.ndarray]:
+    ids = sorted(d)
+    return {"ids": np.asarray(ids, np.int64),
+            "vals": np.asarray([d[i] for i in ids], np.float64)}
+
+
+def unpack_float_map(tree: Dict[str, np.ndarray]) -> Dict[int, float]:
+    return {int(i): float(v) for i, v in
+            zip(np.asarray(tree["ids"]), np.asarray(tree["vals"]))}
+
+
+def tree_like(template, restored):
+    """A restored tree (numpy arrays, or bf16 CPU tensors) cast onto the
+    structure, dtypes and devices of a live template of tensors. An empty
+    subtree of the template holds no leaf, so a checkpoint has none."""
+    if isinstance(template, dict):
+        return {k: tree_like(v, restored.get(k, {}))
+                for k, v in template.items()}
+    return torch.as_tensor(restored).to(device=template.device,
+                                        dtype=template.dtype)

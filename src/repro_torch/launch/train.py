@@ -11,9 +11,15 @@ On the card every full-sequence attention runs the flash kernel
 (``kernels/csrc/flash_attention.cu``) and every Mamba2 layer's SSD scan
 the scan kernel (``kernels/csrc/ssm_scan.cu``); ``use_pallas`` picks the
 CPU attention path the reference's ``--use-pallas`` picks (the hybrid
-family's shared attention is GQA too). Checkpoints (``ckpt_dir``,
-``resume``; ROADMAP A11) and the client mesh (``mesh_clients > 1``;
-ROADMAP A14) are not ported and raise ``TypeError``.
+family's shared attention is GQA too). The client mesh (``mesh_clients >
+1``; ROADMAP A14) is not ported and raises ``TypeError``.
+
+Checkpoints (``checkpoint/ckpt.py``, the reference's on-disk format):
+with ``ckpt_dir``, every ``ckpt_every`` rounds the merged params, the
+active tree with its output module, the pace controller's state and the
+data rng stream are saved (and the final params at the end);
+``resume=True`` continues mid-stage from the newest committed step, or
+with the next stage when that step froze or finished its stage.
 
 On the card the pace controller keeps its window there and takes its
 Eq. 2 norms with the block-perturbation kernel
@@ -42,10 +48,12 @@ import torch
 
 from repro_torch import configs
 from repro_torch._device import resolve_device
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import freezing
 from repro_torch.core.pace import PaceController
 from repro_torch.data.synthetic import make_lm_batch
-from repro_torch.fl.sim import FederatedLoop
+from repro_torch.fl.sim import (FederatedLoop, pack_rng_state, tree_like,
+                                unpack_rng_state)
 from repro_torch.models.transformer import build
 from repro_torch.optim import sgd
 
@@ -62,9 +70,6 @@ def train(arch: str, *, reduced: bool = True, steps: int = 40, batch: int = 8,
     "history", "config"}; each history entry carries the reference's
     (stage, round, loss, perturbation) and the round's host-clock
     ``seconds`` (training, aggregation and the pace controller)."""
-    if ckpt_dir is not None or resume:
-        raise TypeError("checkpoints (ckpt_dir, resume) are not ported "
-                        "(ROADMAP A11)")
     if mesh_clients and mesh_clients > 1:
         raise TypeError("mesh_clients > 1 is not ported (ROADMAP A14)")
     dev = resolve_device(device)
@@ -86,12 +91,40 @@ def train(arch: str, *, reduced: bool = True, steps: int = 40, batch: int = 8,
     model = build(cfg, dev)
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
     T = cfg.num_freeze_blocks
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     rng = np.random.RandomState(seed)
+    start_stage, start_in_stage = 0, 0
+    restored_pace = restored_active = restored_global = None
+    if resume and mgr is not None:
+        try:
+            ck = mgr.restore()
+        except FileNotFoundError:
+            ck = None
+        if ck is not None:
+            meta, tree = ck["metadata"], ck["tree"]
+            params = tree_like(params, tree["params"])
+            rng = unpack_rng_state(tree["rng"])
+            restored_pace = tree.get("pace")
+            restored_active = tree.get("active")  # with the output module
+            restored_global = meta.get("global_round")
+            start_stage, start_in_stage = meta["stage"], meta["round"] + 1
+            if meta.get("frozen"):
+                # saved on a pace-freeze round: params carry that stage's
+                # merge, so the next stage starts
+                start_stage, start_in_stage = start_stage + 1, 0
+                restored_pace = restored_active = None
+            print(f"resumed from stage {start_stage} round {start_in_stage}")
     history = []
     rounds_per_stage = max(steps // T, 1)
-    global_round = 0
+    if start_in_stage >= rounds_per_stage:
+        # saved on a stage's last round: the next stage starts
+        start_stage, start_in_stage = start_stage + 1, 0
+    # the saved global index: stages frozen early ran fewer than
+    # rounds_per_stage rounds
+    global_round = (restored_global + 1 if restored_global is not None
+                    else start_stage * rounds_per_stage + start_in_stage)
 
-    for stage in range(T):
+    for stage in range(start_stage, T):
         plan = freezing.make_stage_plan(cfg, stage)
         frozen, active = freezing.init_stage_active(
             model, params, plan,
@@ -102,8 +135,16 @@ def train(arch: str, *, reduced: bool = True, steps: int = 40, batch: int = 8,
         pace = PaceController(**(pace_kwargs or dict(
             min_rounds=max(rounds_per_stage // 2, 3), mu=2,
             slope_lambda=5e-3)))
+        r0 = start_in_stage if stage == start_stage else 0
+        if r0 and restored_pace is not None:
+            pace.load_state_dict(restored_pace)
+        if r0 and restored_active is not None:
+            # the merged params lack the output module: the whole active
+            # tree comes back
+            active = tree_like(active, restored_active)
+        restored_pace = restored_active = None
         t_stage = time.time()
-        box = {"active": active, "stage_round": 0, "t0": 0.0}
+        box = {"active": active, "stage_round": r0, "t0": 0.0}
 
         def train_fn(cohort, r, _box=box, _step=step_fn, _frozen=frozen):
             _box["t0"] = time.perf_counter()
@@ -128,6 +169,18 @@ def train(arch: str, *, reduced: bool = True, steps: int = 40, batch: int = 8,
             if r % log_every == 0:
                 print(f"stage {_stage} round {r:3d} loss {loss:.4f} "
                       f"P={p if p is None else round(p, 4)}")
+            if mgr and (rec.round_idx + 1) % ckpt_every == 0:
+                merged = freezing.merge_stage_params(model, params, plan,
+                                                     _box["active"])
+                mgr.save(rec.round_idx,
+                         {"params": merged, "active": _box["active"],
+                          "pace": _pace.state_dict(),
+                          "rng": pack_rng_state(rng)},
+                         metadata={"stage": _stage, "round": r,
+                                   "global_round": rec.round_idx,
+                                   "frozen": bool(freeze),
+                                   "compute_dtype": cfg.compute_dtype})
+                del merged
             _box["stage_round"] = r + 1
             if freeze:
                 print(f"stage {_stage} frozen by pace controller at round {r}")
@@ -137,12 +190,19 @@ def train(arch: str, *, reduced: bool = True, steps: int = 40, batch: int = 8,
                              train_fn=train_fn,
                              client_ids=list(range(num_pods)),
                              on_round=on_round)
-        done = loop.run(rounds_per_stage, start_round=global_round)
+        done = loop.run(rounds_per_stage - r0, start_round=global_round)
         global_round += len(done)
         params = freezing.merge_stage_params(model, params, plan, box["active"])
         # drop the stage's trees before the next one is drawn
         del frozen, active, box, step_fn, loop, train_fn, on_round
         print(f"stage {stage} done in {time.time() - t_stage:.0f}s")
+    if mgr:
+        mgr.save(global_round, {"params": params,
+                                "rng": pack_rng_state(rng)},
+                 metadata={"stage": T - 1, "round": rounds_per_stage,
+                           "global_round": global_round,
+                           "compute_dtype": cfg.compute_dtype})
+        mgr.wait()
     return {"params": params, "history": history, "config": cfg}
 
 
@@ -159,10 +219,8 @@ def main(argv=None):
     ap.add_argument("--local-steps", type=int, default=1)
     ap.add_argument("--pods", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-3)
-    ap.add_argument("--ckpt-dir", default=None,
-                    help="not ported (ROADMAP A11): raises")
-    ap.add_argument("--resume", action="store_true",
-                    help="not ported (ROADMAP A11): raises")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--compute-dtype", default=None,
                     help="override the arch's compute dtype "
@@ -182,8 +240,11 @@ def main(argv=None):
                 compute_dtype=a.compute_dtype, mesh_clients=a.mesh_clients,
                 use_pallas=a.use_pallas, device=a.device)
     losses = [h["loss"] for h in out["history"]]
-    print(f"finished: {len(losses)} rounds, "
-          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if losses:
+        print(f"finished: {len(losses)} rounds, "
+              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    else:
+        print("finished: nothing left to run (checkpoint already complete)")
 
 
 if __name__ == "__main__":

@@ -30,6 +30,22 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     return [tree]
 
 
+def tree_paths(tree, prefix: tuple = ()) -> List[Tuple[tuple, Any]]:
+    """(path, leaf) pairs in ``jax.tree_util.tree_flatten_with_path``'s
+    order and naming, as the reference's ``tree_paths`` gives them: a dict
+    key stands for itself (keys sorted), a list or tuple index is
+    ``"[i]"``, and None holds no leaf."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in tree_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, v in enumerate(tree)
+                for pl in tree_paths(v, prefix + (f"[{i}]",))]
+    if tree is None:
+        return []
+    return [(prefix, tree)]
+
+
 def tree_map(fn: Callable, tree, *rest):
     """Apply ``fn`` leafwise over trees of one structure."""
     if isinstance(tree, dict):

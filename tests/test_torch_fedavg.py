@@ -198,13 +198,47 @@ def test_unported_fedavg_arguments_raise(kwargs):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), **TOL)
 
 
-@pytest.mark.parametrize("kwargs", [dict(ckpt_manager=None),
-                                    dict(ckpt_every=1), dict(resume=True)])
-def test_unported_fedavg_run_arguments_raise(kwargs):
+@pytest.mark.parametrize("kwargs", [
+    dict(async_save=False, fused=False),
+    dict(async_save=True, fused=True),
+    dict(async_save=True, fused=True, compress_ratio=0.5)])
+def test_unported_fedavg_run_arguments_raise(tmp_path, kwargs):
+    """``run``'s checkpoint arguments: four rounds without a break equal
+    two rounds checkpointed every round followed by a resume to four, bit
+    for bit (selections from the restored rng stream, losses, params and
+    BN state), on the sequential and the fused path, and with compressed
+    uplinks whose error-feedback pools the resume carries."""
+    from repro_torch.checkpoint import CheckpointManager
+    mgr = CheckpointManager(str(tmp_path / "ck"),
+                            async_save=kwargs.pop("async_save"))
     clients = _clients(TVision, t_dirichlet, t_fleet)
-    srv = TFedAvg(TCNN(TCfg(**CFG), device="cpu"), clients, device="cpu")
-    with pytest.raises(TypeError):
-        srv.run({}, {}, rounds=1, **kwargs)
+    model = TCNN(TCfg(**CFG), device="cpu")
+    params, state = model.init(torch.Generator().manual_seed(0))
+
+    def make():
+        return TFedAvg(model, clients, device="cpu", **kwargs,
+                       **dict(SRV, seed=4))
+    out_a = make().run(params, state, rounds=4)
+    srv_b = make()
+    srv_b.run(params, state, rounds=2, ckpt_manager=mgr, ckpt_every=1)
+    out_c = make().run(params, state, rounds=4, ckpt_manager=mgr,
+                       resume=True)
+    combined = srv_b.history + out_c["history"]
+    assert len(combined) == 4
+    for a, b in zip(out_a["history"], combined):
+        assert (a.round_idx, a.selected, a.loss, a.virtual_time) == \
+            (b.round_idx, b.selected, b.loss, b.virtual_time)
+    assert out_c["virtual_time"] == out_a["virtual_time"]
+    for a, b in zip(tree_leaves(out_a["params"]) + tree_leaves(out_a["state"]),
+                    tree_leaves(out_c["params"]) + tree_leaves(out_c["state"])):
+        assert torch.equal(a, b)
+    if "compress_ratio" in kwargs:
+        assert "ef" in mgr.restore(step=1)["tree"]
+    # resuming a finished run trains nothing
+    done = make().run(params, state, rounds=2, ckpt_manager=mgr,
+                      resume=True)
+    assert done["history"] == [] and done["virtual_time"] == \
+        combined[1].virtual_time
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ Tolerances:
     reference's by the same order;
   * host data: bitwise."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -489,10 +490,65 @@ def test_train_refuses_missing_cuda():
 
 @pytest.mark.parametrize("kwargs", [dict(ckpt_dir="ckpts"), dict(resume=True),
                                     dict(mesh_clients=2)])
-def test_train_refuses_unported_arguments(kwargs):
-    with pytest.raises(TypeError, match="ROADMAP"):
-        ttrain_mod.train("llama3-8b", steps=2, batch=1, seq=8, device="cpu",
-                         **kwargs)
+def test_train_refuses_unported_arguments(monkeypatch, tmp_path, kwargs):
+    """``mesh_clients > 1`` is not ported and raises. The checkpoint
+    arguments are, on the bf16 ``llama3-8b.reduced()``: ``ckpt_dir``
+    writes the reference's format, whose last step the reference restores
+    with the final params bit for bit (bf16 through its uint16 view) and
+    the run's metadata; ``resume=True`` after a crash in stage 0's third
+    round (the data draw raises) continues mid-stage from the second
+    round's step, restoring the active tree with its output module, the
+    pace window and the data stream, and the resumed rounds and final
+    params equal the uninterrupted run's bit for bit."""
+    if "mesh_clients" in kwargs:
+        with pytest.raises(TypeError, match="ROADMAP"):
+            ttrain_mod.train("llama3-8b", steps=2, batch=1, seq=8,
+                             device="cpu", **kwargs)
+        return
+    from repro.checkpoint import restore_checkpoint as j_restore
+    ckpts = str(tmp_path / "ckpts")
+    kw = dict(steps=6, batch=2, seq=16, device="cpu", log_every=100,
+              ckpt_every=1)
+    want = ttrain_mod.train("llama3-8b", **kw)
+    if "ckpt_dir" in kwargs:
+        got = ttrain_mod.train("llama3-8b", ckpt_dir=ckpts, **kw)
+        ck = j_restore(ckpts)
+        assert ck["step"] == 6 and ck["metadata"] == {
+            "stage": 1, "round": 3, "global_round": 6,
+            "compute_dtype": "bfloat16"}
+        for a, b in zip(jax.tree.leaves(ck["tree"]["params"]),
+                        tree_leaves(got["params"])):
+            assert str(a.dtype) == str(b.dtype).split(".")[1]
+            np.testing.assert_array_equal(
+                np.asarray(a).view(np.uint16) if b.dtype == torch.bfloat16
+                else np.asarray(a), b.view(torch.int16).numpy().view(
+                    np.uint16) if b.dtype == torch.bfloat16 else b.numpy())
+        return
+    draws = {"n": 0}
+    real_batch = ttrain_mod.make_lm_batch
+
+    def crashing_batch(*a, **k):
+        draws["n"] += 1
+        if draws["n"] == 3:
+            raise RuntimeError("crash")
+        return real_batch(*a, **k)
+    monkeypatch.setattr(ttrain_mod, "make_lm_batch", crashing_batch)
+    # synchronous saves: the crash must not race the last one
+    monkeypatch.setattr(ttrain_mod, "CheckpointManager", functools.partial(
+        ttrain_mod.CheckpointManager, async_save=False))
+    with pytest.raises(RuntimeError, match="crash"):
+        ttrain_mod.train("llama3-8b", ckpt_dir=ckpts, **kw)
+    got = ttrain_mod.train("llama3-8b", ckpt_dir=ckpts, resume=True, **kw)
+    tail = want["history"][2:]
+    assert [(h["stage"], h["round"]) for h in got["history"]] == \
+        [(h["stage"], h["round"]) for h in tail] == \
+        [(0, 2), (1, 0), (1, 1), (1, 2)]
+    for a, b in zip(tail, got["history"]):
+        assert (a["loss"], a["perturbation"]) == (b["loss"],
+                                                   b["perturbation"])
+    assert got["history"][0]["perturbation"] is not None
+    for a, b in zip(tree_leaves(want["params"]), tree_leaves(got["params"])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def test_train_main_parses_the_reference_flags(monkeypatch):

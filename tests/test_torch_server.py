@@ -180,20 +180,18 @@ def test_unported_policies_and_run_arguments_raise():
     with pytest.raises(ValueError, match="choose from .*'async-buffered'.*"
                        "'deadline'.*'sync'"):
         TServer(model, fleet, device="cpu", aggregation="fedbuff")
-    srv = TServer(model, fleet, device="cpu")
-    for kw in (dict(ckpt_manager=None), dict(resume=True)):
-        with pytest.raises(TypeError):
-            srv.run({}, {}, **kw)
 
 
 def test_port_imports_without_jax_or_reference():
-    """Every module of the port imports with JAX and the JAX package
-    blocked, the LM, serving, hybrid, B3, tier, policy, baseline and fault
-    slices' modules among them, and registering the ported configs pulls in nothing
-    of either; chip_smoke.py imports neither."""
+    """Every module of the port imports with JAX, the JAX package and
+    ml_dtypes blocked, the LM, serving, hybrid, B3, tier, policy, baseline,
+    fault and checkpoint slices' modules among them, and registering the
+    ported configs pulls in nothing of them; chip_smoke.py imports none of
+    them."""
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
+            "sys.modules['ml_dtypes'] = None\n"
             "import pkgutil, importlib, repro_torch\n"
             "names = [m.name for m in pkgutil.walk_packages("
             "repro_torch.__path__, 'repro_torch.')]\n"
@@ -208,7 +206,8 @@ def test_port_imports_without_jax_or_reference():
             "'repro_torch.kernels.block_perturb', 'repro_torch.core.pace', "
             "'repro_torch.fl.quant', 'repro_torch.kernels.dequant_matmul', "
             "'repro_torch.fl.sim', 'repro_torch.fl.engine', "
-            "'repro_torch.fl.baselines', 'repro_torch.fl.faults'):\n"
+            "'repro_torch.fl.baselines', 'repro_torch.fl.faults', "
+            "'repro_torch.checkpoint', 'repro_torch.checkpoint.ckpt'):\n"
             "    assert n in names, n\n"
             "from repro_torch import configs\n"
             "assert configs.names() == ['deepseek-coder-33b', 'llama3-8b', "
@@ -226,4 +225,5 @@ def test_port_imports_without_jax_or_reference():
                 for a in n.names}
     imported |= {n.module for n in ast.walk(tree)
                  if isinstance(n, ast.ImportFrom) and n.module}
-    assert not any(m.split(".")[0] in ("jax", "repro") for m in imported)
+    assert not any(m.split(".")[0] in ("jax", "repro", "ml_dtypes")
+                   for m in imported)
