@@ -144,7 +144,21 @@ Phases, each of which exits non-zero on failure:
      MLP consumer at w1 [16,384, 512]; one round in f32, one in bf16, one
      B2 launch per local step; a profiled round;
  24. check the card's tiered bf16 run and a quant-aware int8 round against
-     the port's CPU path on a small model.
+     the port's CPU path on a small model;
+ 25. the resident population (``phase_population``): 100,000 clients in
+     64 communities, k 64, 5 rounds of ``select_arrays`` at epsilon 0 and
+     5 at 0.2 held against the port's CPU path (equal; at 0.2 near ties
+     counted), community coverage, the Gumbel draw timed, cache admission
+     at three tiers equal to the CPU's, and ``sketch_communities``' steps
+     on 100,000 planted CIFAR-100 label histograms (50 communities back;
+     2,048 rows' top-8 weights against a CPU top-8 over all columns);
+ 26. drive ``SmartFreezeServer.run`` with ``VectorizedSelector`` on
+     full-width ResNet-18 (phase 4's setup, schedule [2, 1, 1, 1]), counts
+     set to 0 before and read after (B1, B3); each cohort equal to the list
+     selector's on the CPU; the engine's residual norms against f64 CPU
+     norms;
+ 27. check the small CNN with ``VectorizedSelector(epsilon=0.2)`` on the
+     card against the port's CPU path.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -4399,6 +4413,366 @@ def phase_small_tiered_reference():
           "atol 1e-5)")
 
 
+POP_N = 100_000
+POP_COMMUNITIES = 64
+POP_K = 64
+POP_MEM = 1.5 * 2**30
+POP_REL = 1e-6       # epsilon > 0: CPU scores this close may swap on the card
+SKETCH_GROUPS, SKETCH_PER, SKETCH_CLASSES = 50, 2_000, 100
+SKETCH_ROWS = 2_048  # sampled rows held against a CPU top-m over all N
+
+
+def _population_infos(n, n_comm, seed=0):
+    """``benchmarks/run.py:selector_scale``'s ``build(n)``: memory {1, 2,
+    4, 8} GiB, capability {1e9, 2.5e9, 5e9} FLOP/s, 32-511 samples,
+    uniform loss, a uniform random community."""
+    import numpy as np
+    from repro_torch.core.selector import ClientInfo
+    rng = np.random.RandomState(seed)
+    mem = rng.choice([1.0, 2.0, 4.0, 8.0], size=n) * 2**30
+    cap = rng.choice([1e9, 2.5e9, 5e9], size=n)
+    samp = rng.randint(32, 512, size=n)
+    loss = rng.rand(n).astype(np.float64)
+    comm = rng.randint(0, n_comm, size=n)
+    infos = {i: ClientInfo(i, float(mem[i]), float(cap[i]), int(samp[i]),
+                           float(loss[i])) for i in range(n)}
+    return infos, comm
+
+
+def _planted_label_histograms(n_groups, per, num_classes, seed=0):
+    """``tests/test_vectorized_selector.py:_planted_histograms`` at scale:
+    group g dominant on classes 2g (50-59 samples) and 2g + 1 (30), plus
+    uniform [0, 1) noise on every class."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    n = n_groups * per
+    group = np.arange(n) // per
+    hist = np.zeros((n, num_classes))
+    hist[np.arange(n), group * 2] = 50 + rng.randint(0, 10, n)
+    hist[np.arange(n), group * 2 + 1] = 30
+    hist += rng.rand(n, num_classes)
+    return hist, group
+
+
+def _sync_s(fn):
+    """Host seconds of ``fn()`` between two device synchronizations."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_population(card):
+    """The resident population at a deployment's size: N = 100,000 clients
+    in 64 communities (``benchmarks/run.py:selector_scale``'s fleet), k =
+    64, a 1.5 GiB stage.
+
+      1. 5 rounds of ``select_arrays`` at epsilon 0 and 5 at epsilon 0.2,
+         each held against the port's CPU path on the same population
+         (equal at 0; at 0.2 equal except where the two clients' CPU
+         scores lie within 1e-6 relative, counted), each covering all 64
+         communities once, timed between synchronizations; the Gumbel draw
+         timed alone;
+      2. ``assign_cache_tiers`` at f32 / fp16 / int8 for ResNet-18's
+         stage 1 at 32x32, equal to the CPU's;
+      3. ``sketch_communities``' steps on 100,000 planted CIFAR-100 label
+         histograms (50 groups of 2,000, each dominant on two classes of
+         its own): sketches, ``topm_neighbors`` (sketch_dim 64, m 8) and
+         label propagation timed apart; the 50 groups must come back as 50
+         communities; 2,048 sampled rows' top-m weights held against a CPU
+         top-m over all N columns within 1e-5."""
+    import numpy as np
+    import torch
+    from repro_torch.core.memory_model import (CACHE_TIER_DTYPES, CACHE_TIERS,
+                                               cnn_feature_cache_bytes)
+    from repro_torch.core.selector import (ClientPopulation,
+                                           VectorizedSelector, _threefry)
+    from repro_torch.core.selector.bandit import mix_seed
+    from repro_torch.core.selector.rlcd import (_merge_by_centroid,
+                                                label_propagation)
+    from repro_torch.core.selector.similarity import (label_sketches,
+                                                      sketch_projection,
+                                                      topm_neighbors)
+    from repro_torch.core.selector.vectorized import (_population_stats,
+                                                      assign_cache_tiers)
+    from repro_torch.models.cnn import CNN, RESNET18
+    t_phase = time.perf_counter()
+    infos, comm = _population_infos(POP_N, POP_COMMUNITIES)
+    pop_card, pop_cpu = (ClientPopulation.from_infos(
+        infos, community_id=comm, n_communities=POP_COMMUNITIES, device=dev)
+        for dev in ("cuda", "cpu"))
+    near_ties = 0
+    for eps in (0.0, 0.2):
+        sel_card, sel_cpu = (VectorizedSelector(epsilon=eps, seed=7,
+                                                device=dev)
+                             for dev in ("cuda", "cpu"))
+        ms = []
+        for r in range(5):
+            picks, secs = _sync_s(lambda: sel_card.select_arrays(
+                pop_card, POP_K, mem_required=POP_MEM))
+            ms.append(secs * 1e3)
+            want = sel_cpu.select_arrays(pop_cpu, POP_K, mem_required=POP_MEM)
+            assert len(picks) == POP_K == len(set(picks.tolist()))
+            assert len(set(comm[picks])) == POP_COMMUNITIES, r
+            diff = np.flatnonzero(picks != want)
+            if eps == 0.0:
+                assert diff.size == 0, (r, diff)
+                continue
+            if diff.size:
+                g = _threefry.gumbel(mix_seed(7, r + 1), POP_N, "cpu")
+                f32 = lambda v: torch.tensor(np.float32(v))
+                score = _population_stats(
+                    pop_cpu.memory_bytes, pop_cpu.stage_time(),
+                    pop_cpu.loss_sum, pop_cpu.community_id, g, f32(POP_MEM),
+                    f32(1e-3), f32(eps), n_comm=POP_COMMUNITIES + 1
+                )[0].double().numpy()
+                for a, b in zip(picks[diff], want[diff]):
+                    gap = abs(score[a] - score[b])
+                    assert gap <= POP_REL * max(abs(score[a]), abs(score[b])),\
+                        (r, a, b, score[a], score[b])
+                    near_ties += 1
+        np.testing.assert_array_equal(pop_card.last_seen.cpu().numpy(),
+                                      pop_cpu.last_seen.numpy())
+        print(f"population: select_arrays N {POP_N} communities "
+              f"{POP_COMMUNITIES} k {POP_K} epsilon {eps}: ms "
+              f"{[round(m, 3) for m in ms]} on {card}")
+    print(f"population: epsilon 0.2 picks that differ from the CPU's, each "
+          f"a near tie (CPU scores within {POP_REL} relative): {near_ties}")
+    draw_s = []
+    for r in range(5):
+        _, secs = _sync_s(lambda: _threefry.gumbel(mix_seed(7, r + 1), POP_N,
+                                                   "cuda"))
+        draw_s.append(secs * 1e3)
+    print(f"population: Gumbel draw (numpy Threefry bits on the host, two "
+          f"logs on the card) ms {[round(m, 3) for m in draw_s]}")
+
+    # ResNet-18's stage-1 cache rates at 32x32 behind a requirement that
+    # leaves the 2 GiB clients 64 MiB: their shards split over the tiers
+    model = CNN(RESNET18, device="cpu")
+    stage_bytes = 2 * 2**30 - 64 * 2**20
+    rates = [cnn_feature_cache_bytes(model, 1, 1, 32, CACHE_TIER_DTYPES[t])
+             for t in CACHE_TIERS]
+    tiers, secs = _sync_s(lambda: assign_cache_tiers(pop_card, stage_bytes,
+                                                     rates))
+    np.testing.assert_array_equal(tiers, assign_cache_tiers(
+        pop_cpu, stage_bytes, rates))
+    print(f"population: assign_cache_tiers {secs * 1e3:.3f} ms, tiers "
+          f"{dict(zip(*np.unique(tiers, return_counts=True)))} (-1 "
+          f"declined), equal to the CPU's")
+
+    hist, group = _planted_label_histograms(SKETCH_GROUPS, SKETCH_PER,
+                                            SKETCH_CLASSES)
+    proj = sketch_projection(SKETCH_CLASSES, 64, 0)
+    sketches, t_sk = _sync_s(lambda: label_sketches(hist, proj,
+                                                    device="cuda"))
+    (nb, w), t_nb = _sync_s(lambda: topm_neighbors(sketches, 8))
+    labels, t_lpa = _sync_s(lambda: label_propagation(nb, w))
+    t0 = time.perf_counter()
+    merged = _merge_by_centroid(labels, sketches, merge_threshold=0.9)
+    t_merge = time.perf_counter() - t0
+    n_comm = int(merged.max()) + 1
+    print(f"population: sketch_communities N {len(hist)} (sketch_dim 64, m "
+          f"8): sketches {t_sk:.4f} s, topm_neighbors {t_nb:.4f} s, label "
+          f"propagation {t_lpa:.4f} s ({int(labels.max()) + 1} labels), "
+          f"centroid merge {t_merge:.4f} s -> {n_comm} communities")
+    assert n_comm == SKETCH_GROUPS, n_comm
+    for g in range(SKETCH_GROUPS):
+        assert len(set(merged[group == g].tolist())) == 1, g
+    assert len({int(merged[group == g][0]) for g in range(SKETCH_GROUPS)}) \
+        == SKETCH_GROUPS
+    rows = np.sort(np.random.RandomState(1).choice(len(hist), SKETCH_ROWS,
+                                                   replace=False))
+    sk_cpu = label_sketches(hist, proj, device="cpu")
+    unit = sk_cpu / torch.clamp_min(torch.sqrt((sk_cpu * sk_cpu).sum(
+        1, keepdim=True)), 1e-12)
+    want_w, want_i = [], []
+    for lo in range(0, SKETCH_ROWS, 256):
+        r = torch.as_tensor(rows[lo:lo + 256])
+        sims = unit[r] @ unit.T
+        sims[torch.arange(len(r)), r] = -torch.inf
+        top = torch.topk(sims, 8, dim=1)
+        want_w.append(top.values)
+        want_i.append(top.indices)
+    want_w = torch.cat(want_w).numpy()
+    at = torch.as_tensor(rows, device=w.device)
+    err = float(np.abs(w[at].cpu().numpy() - want_w).max())
+    same_idx = float((nb[at].cpu().numpy() == torch.cat(want_i).numpy()
+                      ).mean())
+    print(f"population: {SKETCH_ROWS} sampled rows' top-8 weights vs a CPU "
+          f"top-8 over all {len(hist)} columns: max abs err {err:.3e}; "
+          f"indices equal at {same_idx:.4f} of places (cosines within an ulp "
+          f"may swap)")
+    assert err <= 1e-5, err
+    print(f"population phase seconds {time.perf_counter() - t_phase:.2f}")
+
+
+class _recorded_selects:
+    """Records every ``select`` call of a selector inside the ``with``:
+    (the infos it was given, k, keywords, the picks, its host ms; both
+    selectors end in the picks on the host)."""
+
+    def __init__(self, selector):
+        self.selector = selector
+
+    def __enter__(self):
+        select, log = self.selector.select, []
+
+        def recorded(clients, k, **kw):
+            t0 = time.perf_counter()
+            out = select(clients, k, **kw)
+            ms = (time.perf_counter() - t0) * 1e3
+            log.append((dict(clients), k, kw, list(out), ms))
+            return out
+        self.selector.select = recorded
+        return log
+
+    def __exit__(self, *exc):
+        del self.selector.select
+
+
+def phase_population_path(card):
+    """``SmartFreezeServer.run`` with the vectorized selector on the card:
+    full-width ResNet-18 over ``phase_main_path``'s fleet, cohort, batch,
+    top-k ratio 0.1 and SGD, ``VectorizedSelector(seed=0, epsilon=0,
+    device="cuda")``, schedule [2, 1, 1, 1] (stage 0's second round is the
+    one pace observe that takes the Eq. 2 norms). B1 and B3 counted by the
+    main path's rule; each round's cohort equal to the port's list
+    ``ParticipantSelector(epsilon=0, seed=0)`` given the same infos and
+    communities on the CPU; ``RoundEngine.residual_norms`` on the card
+    finite and within 1e-6 relative of an f64 CPU norm of the same pools.
+    Then the same run with that list selector, for its round walls and
+    select times beside the vectorized run's (its cohorts may part from
+    round 1 on: B1's atomic order makes a fused compressed run on the
+    card differ from its twin, PERF.md §6, PR 28)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.selector import (ParticipantSelector,
+                                           VectorizedSelector)
+    from repro_torch.fl.server import SmartFreezeServer
+    from repro_torch.kernels import block_perturb, sparse_agg
+    from repro_torch.models.cnn import CNN, RESNET18
+    from repro_torch.models.module import tree_leaves
+    clients, _ = _fleet(10_000, 20, 32, 10)
+    model = CNN(RESNET18, device="cuda")
+    params, state = model.init(torch.Generator().manual_seed(0))
+
+    def drive(selector):
+        srv = SmartFreezeServer(model, clients, clients_per_round=COHORT,
+                                batch_size=32, local_epochs=1,
+                                compress_ratio=RATIO, seed=0, device="cuda",
+                                selector=selector)
+        engines = []
+        make_engine = srv._stage_engine
+        srv._stage_engine = lambda *a, **k: engines.append(
+            make_engine(*a, **k)) or engines[-1]
+        with _timed_observes() as observe_ms, _ticks() as ticks, \
+                _recorded_selects(selector) as selects:
+            sparse_agg.launches = block_perturb.launches = 0
+            res, secs = _sync_s(lambda: srv.run(params, state,
+                                                schedule=[2, 1, 1, 1]))
+            b1, b3 = sparse_agg.launches, block_perturb.launches
+        walls = [tick_ms + o_ms for (_, tick_ms, _), o_ms
+                 in zip(ticks, observe_ms)]
+        return srv, res, secs, ticks, walls, selects, engines, b1, b3
+
+    selector = VectorizedSelector(seed=0, epsilon=0.0, device="cuda")
+    srv, res, secs, ticks, walls, selects, engines, b1, b3 = drive(selector)
+    hist = res["history"]
+    stages = [r.stage for r in hist]
+    for rr, wall, sel in zip(hist, walls, selects):
+        print(f"vectorized selector round {rr.round_idx} stage {rr.stage} "
+              f"loss {rr.loss:.4f} wall_ms {wall:.1f} select_ms "
+              f"{sel[4]:.3f} selected {rr.selected}")
+    want_b1 = _expected_fold_launches(model, res["params"], srv, ticks,
+                                      stages)
+    want_b3 = _expected_b3(model, res["params"], stages)
+    print(f"vectorized selector path: {secs:.2f} s on {card}; "
+          f"sparse_cohort_add launches {b1} (expected {want_b1}), "
+          f"diff_sqnorm launches {b3} (expected {want_b3})")
+    assert stages == [0, 0, 1, 2, 3], stages
+    assert all(math.isfinite(r.loss) for r in hist), [r.loss for r in hist]
+    leaves = tree_leaves(res["params"]) + tree_leaves(res["state"])
+    assert all(l.device.type == "cuda" for l in leaves)
+    assert all(bool(torch.isfinite(l).all()) for l in leaves)
+    assert b1 == want_b1 > 0, (b1, want_b1)
+    assert b3 == want_b3 > 0, (b3, want_b3)
+
+    assert len(selects) == len(hist) and selector._round == len(hist)
+    listed = ParticipantSelector(epsilon=0.0, seed=0)
+    listed._communities = selector._communities
+    for (infos, k, kw, picks, _), rr in zip(selects, hist):
+        assert picks == rr.selected
+        assert listed.select(infos, k, **kw) == picks, (rr.round_idx, picks)
+    print(f"vectorized selector path: {len(selects)} cohorts equal to the "
+          f"list selector's on the CPU ({len(selector._communities)} "
+          f"communities)")
+
+    engine = engines[-1]
+    norms, secs = _sync_s(engine.residual_norms)
+    assert sorted(norms) == sorted(engine._res_row) and norms
+    worst = 0.0
+    for cid, got in norms.items():
+        rows = np.concatenate([r.double().cpu().numpy()
+                               for r in engine.client_residuals(cid)])
+        want = float(np.linalg.norm(rows))
+        assert math.isfinite(got) and want > 0, (cid, got)
+        worst = max(worst, abs(got - want) / want)
+    print(f"vectorized selector path: residual_norms of {len(norms)} clients "
+          f"over {len(engine._res_pool)} leaf pools {secs * 1e3:.3f} ms, max "
+          f"rel diff from f64 CPU norms {worst:.2e}")
+    assert worst <= 1e-6, worst
+
+    _, list_res, _, _, list_walls, list_selects, _, _, _ = drive(
+        ParticipantSelector(epsilon=0.0, seed=0))
+    for rv, rl, wv, wl, sv, sl in zip(hist, list_res["history"], walls,
+                                      list_walls, selects, list_selects):
+        print(f"round {rv.round_idx} stage {rv.stage}: wall_ms vectorized "
+              f"{wv:.1f} list {wl:.1f}; select_ms vectorized {sv[4]:.3f} "
+              f"list {sl[4]:.3f}; cohorts equal {rv.selected == rl.selected}")
+    return b1, b3
+
+
+def phase_small_population_reference():
+    """The small CNN with ``VectorizedSelector(seed=0, epsilon=0.2)`` (the
+    reference's default exploration) on the card and on the CPU: the
+    loop's records equal, losses and params allclose at
+    ``phase_small_reference``'s tolerances."""
+    import numpy as np
+    import torch
+    from repro_torch.convert import to_numpy, to_torch
+    from repro_torch.core.selector import VectorizedSelector
+    from repro_torch.fl.server import SmartFreezeServer
+    from repro_torch.models.cnn import CNN, CNNConfig
+    from repro_torch.models.module import tree_leaves
+    cfg = CNNConfig("small", "resnet", stage_sizes=(1, 1),
+                    stage_channels=(8, 16), num_classes=4)
+    clients, _ = _fleet(256, 8, 16, 4)
+    params, state = CNN(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    results = {}
+    for device in ("cpu", "cuda"):
+        srv = SmartFreezeServer(
+            CNN(cfg, device=device), clients, clients_per_round=3,
+            batch_size=16, compress_ratio=1.0, seed=0, device=device,
+            selector=VectorizedSelector(seed=0, epsilon=0.2, device=device))
+        results[device] = srv.run(to_torch(to_numpy(params), device),
+                                  to_torch(to_numpy(state), device),
+                                  schedule=[2, 2])
+    for a, b in zip(results["cpu"]["history"], results["cuda"]["history"]):
+        assert (a.selected, a.stage, a.uplink_bytes) == \
+            (b.selected, b.stage, b.uplink_bytes), (a, b)
+        np.testing.assert_allclose(b.loss, a.loss, rtol=1e-3, atol=1e-5)
+    for a, b in zip(tree_leaves(results["cpu"]["params"]),
+                    tree_leaves(results["cuda"]["params"])):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=1e-3,
+                                   atol=1e-5)
+    print(f"small model, vectorized selector at epsilon 0.2: card == CPU "
+          f"path, cohorts {[r.selected for r in results['cuda']['history']]}"
+          f" (rtol 1e-3, atol 1e-5)")
+
+
 def main():
     import torch
     card = phase_versions()
@@ -4444,6 +4818,15 @@ def main():
     del params, state, srv
     torch.cuda.empty_cache()
     phase_small_tiered_reference()
+    t0 = time.perf_counter()
+    phase_population(card)
+    t1 = time.perf_counter()
+    pop_b1, pop_b3 = phase_population_path(card)
+    t2 = time.perf_counter()
+    phase_small_population_reference()
+    print(f"phase seconds: population {t1 - t0:.2f}, population path "
+          f"{t2 - t1:.2f}, small population reference "
+          f"{time.perf_counter() - t2:.2f}")
     # launches: the sum over the main paths that run the kernel
     entry["launches_by_path"] = {"resnet18 sync": entry["launches"],
                                  "resnet18 tiered bf16": tiered_b1}
@@ -4456,6 +4839,7 @@ def main():
     entry["launches_by_path"].update(
         {name: b1 for name, (b1, _) in resume.items()
          if name.startswith("resnet18")})
+    entry["launches_by_path"]["resnet18 vectorized selector"] = pop_b1
     entry["launches"] = sum(entry["launches_by_path"].values())
     flash["launches_by_path"] = {
         "llama3-8b train": llama_flash, "zamba2-7b train": hybrid_flash,
@@ -4474,6 +4858,7 @@ def main():
         {name: b3 for name, (_, b3) in faults.items()})
     perturb["launches_by_path"].update(
         {name: b3 for name, (_, b3) in resume.items() if b3})
+    perturb["launches_by_path"]["resnet18 vectorized selector"] = pop_b3
     perturb["launches"] = sum(perturb["launches_by_path"].values())
     dequant["launches_by_path"] = {
         "resnet18 quant-aware int8 f32": qa["f32"],

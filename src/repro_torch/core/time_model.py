@@ -5,13 +5,18 @@ t_t^i = rho * FLOPs_t * |D_i| / c_i          (Eq. 6)
 T_r(S, t) = max_{i in S} t_t^i              (Eq. 7, synchronous round)
 
 These are virtual seconds of the simulated fleet, not time on the card.
-The array forms compute in float32, as the reference's jitted forms do.
+The ``*_vec`` forms compute in float32 on their inputs' device, as the
+reference's jitted forms do (``completion_times_vec`` rounds its product
+and sum once, as XLA contracts them); ``stage_times``, ``uplink_times``
+and ``completion_times`` are the same bodies on host numpy arrays, which
+``fl/sim.py:FleetTimeModel`` uses.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import numpy as np
+import torch
 
 
 def cnn_cached_compute_scale(stage: int) -> float:
@@ -22,21 +27,56 @@ def cnn_cached_compute_scale(stage: int) -> float:
     return 3.0 / (max(stage, 0) + 3.0)
 
 
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32, as XLA contracts it on the
+    CPU. The f32 product is exact in f64, so the f64 sum rounds once and
+    the cast a second time; the two roundings part from one only when the
+    f64 sum lands on an f32 rounding midpoint."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def stage_times_vec(flops_per_sample, num_samples, capability, rho=1.0
+                    ) -> torch.Tensor:
+    """Eq. (6) over client tensors: [N] f32 seconds of local compute, on
+    ``num_samples``' device. ``flops_per_sample`` may be a scalar (one
+    stage for the whole fleet) or an [N] array (per-client sub-models)."""
+    ns = torch.as_tensor(num_samples)
+    dev = ns.device
+    return (_f32(rho, dev) * _f32(flops_per_sample, dev)
+            * ns.to(torch.float32) / torch.clamp_min(_f32(capability, dev),
+                                                     1e-9))
+
+
+def uplink_times_vec(payload_bytes, link_rate) -> torch.Tensor:
+    """[N] f32 seconds to put ``payload_bytes`` on each client's uplink,
+    on ``link_rate``'s device; infinite link rates (the free-network
+    default) cost 0."""
+    rate = torch.as_tensor(link_rate).to(torch.float32)
+    t = _f32(payload_bytes, rate.device) / torch.clamp_min(rate, 1e-9)
+    return torch.where(torch.isinf(rate), torch.zeros_like(t), t)
+
+
+def completion_times_vec(compute_s, uplink_s, jitter) -> torch.Tensor:
+    """Per-client round completion time: jittered compute + uplink, the
+    product and the sum rounded once (the reference's contracted form)."""
+    c = torch.as_tensor(compute_s).to(torch.float32)
+    return fma32(c, _f32(jitter, c.device), _f32(uplink_s, c.device))
+
+
 def stage_times(flops_per_sample, num_samples, capability, rho=1.0
                 ) -> np.ndarray:
-    """Eq. (6) over client arrays: [N] f32 seconds of local compute."""
-    return (np.float32(rho) * np.float32(flops_per_sample)
-            * np.asarray(num_samples, np.float32)
-            / np.maximum(np.asarray(capability, np.float32), np.float32(1e-9)))
+    """``stage_times_vec`` on host arrays: [N] f32 numpy seconds."""
+    return stage_times_vec(flops_per_sample, np.asarray(num_samples),
+                           capability, rho).numpy()
 
 
 def uplink_times(payload_bytes, link_rate) -> np.ndarray:
-    """[N] f32 seconds to put ``payload_bytes`` on each client's uplink;
-    infinite link rates (the free-network default) cost 0."""
-    rate = np.asarray(link_rate, np.float32)
-    with np.errstate(divide="ignore"):
-        t = np.float32(payload_bytes) / np.maximum(rate, np.float32(1e-9))
-    return np.where(np.isinf(rate), np.float32(0.0), t).astype(np.float32)
+    """``uplink_times_vec`` on host arrays: [N] f32 numpy seconds."""
+    return uplink_times_vec(payload_bytes, np.asarray(link_rate)).numpy()
 
 
 def completion_jitter(n: int, seed: int, round_idx: int,
@@ -50,9 +90,10 @@ def completion_jitter(n: int, seed: int, round_idx: int,
 
 
 def completion_times(compute_s, uplink_s, jitter) -> np.ndarray:
-    """Per-client round completion time: jittered compute + uplink."""
-    return (np.asarray(compute_s, np.float32) * jitter
-            + np.asarray(uplink_s, np.float32))
+    """``completion_times_vec`` on host arrays: [N] f32 numpy seconds."""
+    return completion_times_vec(np.asarray(compute_s, np.float32),
+                                np.asarray(uplink_s, np.float32),
+                                np.asarray(jitter, np.float32)).numpy()
 
 
 def cohort_round_time(times: Sequence[float]) -> float:

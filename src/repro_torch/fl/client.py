@@ -14,6 +14,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from repro_torch.core.selector.selection import ClientInfo
+from repro_torch.core.selector.vectorized import ClientPopulation
 
 # Paper memory scenarios: available RAM (GiB) under high / low contention
 HIGH_CONTENTION_GB = (0.5, 0.75, 1.0, 1.5, 2.0)
@@ -65,6 +66,17 @@ def fleet_label_histograms(clients: List[SimClient], num_classes: int
     """[N, num_classes] label histograms in ascending-client-id order."""
     return np.stack([c.label_histogram(num_classes)
                      for c in sorted(clients, key=lambda c: c.client_id)])
+
+
+def fleet_population(clients: List[SimClient], *, community_id=None,
+                     n_communities: int = 1, device="cuda"):
+    """Snapshot a simulated fleet into a ``ClientPopulation``
+    (structure-of-arrays on ``device``) for the vectorized selector, in
+    ascending-client-id order."""
+    return ClientPopulation.from_infos(
+        [c.info() for c in sorted(clients, key=lambda c: c.client_id)],
+        community_id=community_id, n_communities=n_communities,
+        device=device)
 
 
 def make_client_fleet(data: Dict[str, np.ndarray], parts: List[np.ndarray], *,

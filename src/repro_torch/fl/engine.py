@@ -584,6 +584,18 @@ class RoundEngine:
         """One client's uplink payload for the current stage."""
         return self._uplink_bytes(params, 1)
 
+    def residual_norms(self) -> Dict[int, float]:
+        """Per-client ||error-feedback residual||_2 over every leaf's pool,
+        reduced on the device for all clients at once (one pass a leaf
+        pool, one read-back), not client by client — feeds
+        ``ClientPopulation.ef_residual_norm`` for selection policies that
+        prefer clients with pent-up un-transmitted signal."""
+        if not self._res_pool:
+            return {}
+        sq = sum((p * p).sum(1) for p in self._res_pool)
+        norms = torch.sqrt(sq).cpu().numpy()
+        return {cid: float(norms[row]) for cid, row in self._res_row.items()}
+
     def _uplink_bytes(self, params, n_clients: int) -> int:
         """(index, value) payload per client, summed over the cohort; the
         dense f32 params without compression."""

@@ -48,6 +48,12 @@ armed state and the async-buffered policy's in-flight clients are not
 saved, as in the reference. ``FedAvgServer`` saves its params, BN state,
 residual pools and selection stream.
 
+``selector`` accepts either the list-based ``ParticipantSelector`` or the
+population-scale ``core.selector.vectorized.VectorizedSelector`` (on its
+own ``device``, the card unless asked otherwise) — both implement
+``fit_communities`` + ``select`` with the same contract, and both
+checkpoint through ``fl/sim.py:selector_state_tree``.
+
 Not ported yet, and rejected with ``TypeError`` rather than ignored:
 ``mesh`` and ``use_pallas``. The compressed fold always goes through
 ``kernels.ops.sparse_cohort_add``: a CUDA launch on the card, the plain

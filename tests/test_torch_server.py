@@ -185,7 +185,7 @@ def test_unported_policies_and_run_arguments_raise():
 def test_port_imports_without_jax_or_reference():
     """Every module of the port imports with JAX, the JAX package and
     ml_dtypes blocked, the LM, serving, hybrid, B3, tier, policy, baseline,
-    fault and checkpoint slices' modules among them, and registering the
+    fault, checkpoint and population slices' modules among them, and registering the
     ported configs pulls in nothing of them; chip_smoke.py imports none of
     them."""
     code = ("import sys\n"
@@ -207,7 +207,12 @@ def test_port_imports_without_jax_or_reference():
             "'repro_torch.fl.quant', 'repro_torch.kernels.dequant_matmul', "
             "'repro_torch.fl.sim', 'repro_torch.fl.engine', "
             "'repro_torch.fl.baselines', 'repro_torch.fl.faults', "
-            "'repro_torch.checkpoint', 'repro_torch.checkpoint.ckpt'):\n"
+            "'repro_torch.checkpoint', 'repro_torch.checkpoint.ckpt', "
+            "'repro_torch.core.selector.vectorized', "
+            "'repro_torch.core.selector._threefry', "
+            "'repro_torch.core.selector.similarity', "
+            "'repro_torch.core.selector.rlcd', 'repro_torch.core.time_model', "
+            "'repro_torch.fl.client'):\n"
             "    assert n in names, n\n"
             "from repro_torch import configs\n"
             "assert configs.names() == ['deepseek-coder-33b', 'llama3-8b', "
