@@ -6,9 +6,10 @@ reference's, name for name, so a config compares field by field with its
 JAX twin; the registry maps ``--arch <id>`` to its config and ``reduced()``
 derives the small CPU variant of the same family.
 
-The port runs the dense GQA family and the hybrid Zamba2 family. ``get``
-on any other architecture of the reference (MoE, MLA, xLSTM, VLM, audio)
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+The port runs the dense family (GQA and MLA attention), the hybrid Zamba2
+family and the xLSTM family. ``get`` on any other architecture of the
+reference (MoE, VLM, audio) raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -208,10 +209,9 @@ _REGISTRY: dict = {}
 # architectures of the reference that the port does not run yet, and the
 # ROADMAP item that brings each
 _UNPORTED = {
-    "deepseek-v2-236b": "MoE + MLA attention (ROADMAP A15: models/moe.py, MLA)",
+    "deepseek-v2-236b": "MoE (ROADMAP A15: models/moe.py; its MLA attention "
+                        "is ported)",
     "grok-1-314b": "MoE (ROADMAP A15: models/moe.py)",
-    "minicpm3-4b": "MLA attention (ROADMAP A15: MLA in models/attention.py)",
-    "xlstm-350m": "xLSTM mLSTM/sLSTM (ROADMAP A15, xLSTM: models/ssm.py)",
     "internvl2-2b": "VLM frontend (ROADMAP A15: frontends)",
     "hubert-xlarge": "audio encoder frontend (ROADMAP A15: frontends)",
 }
@@ -244,4 +244,5 @@ def _load_all():
         return
     _LOADED = True
     from repro_torch.configs import (  # noqa: F401  (registration)
-        deepseek_coder_33b, llama3_8b, qwen2_72b, zamba2_7b)
+        deepseek_coder_33b, llama3_8b, minicpm3_4b, qwen2_72b, xlstm_350m,
+        zamba2_7b)

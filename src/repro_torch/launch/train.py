@@ -1,18 +1,23 @@
 """End-to-end progressive federated LM training (counterpart of
 ``repro/launch/train.py``).
 
-Runs SmartFreeze on a dense GQA or hybrid (Zamba2) ``--arch``: per stage,
-build the (frozen, active) split and output module, run federated rounds
-(pods are the cross-silo clients) through ``fl/sim.py``'s
-``FederatedLoop``, feed the pace controller the aggregated active block
-each round, freeze on convergence, merge, grow, repeat.
+Runs SmartFreeze on a dense (GQA or MLA: MiniCPM3), hybrid (Zamba2) or
+xLSTM ``--arch``: per stage, build the (frozen, active) split and output
+module, run federated rounds (pods are the cross-silo clients) through
+``fl/sim.py``'s ``FederatedLoop``, feed the pace controller the
+aggregated active block each round, freeze on convergence, merge, grow,
+repeat.
 
-On the card every full-sequence attention runs the flash kernel
-(``kernels/csrc/flash_attention.cu``) and every Mamba2 layer's SSD scan
-the scan kernel (``kernels/csrc/ssm_scan.cu``); ``use_pallas`` picks the
-CPU attention path the reference's ``--use-pallas`` picks (the hybrid
-family's shared attention is GQA too). The client mesh (``mesh_clients >
-1``; ROADMAP A14) is not ported and raises ``TypeError``.
+On the card every full-sequence GQA attention runs the flash kernel
+(``kernels/csrc/flash_attention.cu``): the dense GQA layers, the hybrid
+family's shared attention, and the output module's proxy layers, which
+are GQA with the arch's head geometry for every family (xLSTM's 4 heads of
+256, MiniCPM3's 40 of 64). Every Mamba2 layer's SSD scan runs the scan
+kernel (``kernels/csrc/ssm_scan.cu``). MLA, mLSTM and sLSTM layers call no
+kernel, as in the reference. ``use_pallas`` picks the CPU attention path
+the reference's ``--use-pallas`` picks, and raises ``SystemExit`` for an
+MLA arch, as the reference does. The client mesh (``mesh_clients > 1``;
+ROADMAP A14) is not ported and raises ``TypeError``.
 
 Checkpoints (``checkpoint/ckpt.py``, the reference's on-disk format):
 with ``ckpt_dir``, every ``ckpt_every`` rounds the merged params, the
@@ -35,6 +40,11 @@ Examples (one H100, full width):
             use_pallas=True, pace_kwargs=dict(low_memory=True))"
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
       --full --steps 6 --batch 4 --seq 1024 --use-pallas
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \\
+      --full --steps 8 --batch 4 --seq 1024 --use-pallas
+  PYTHONPATH=src python -c "from repro_torch.launch.train import train; \\
+      train('minicpm3-4b', reduced=False, steps=12, batch=4, seq=1024, \\
+            pace_kwargs=dict(low_memory=True))"
 """
 from __future__ import annotations
 

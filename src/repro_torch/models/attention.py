@@ -1,5 +1,5 @@
-"""GQA attention, full sequence (counterpart of the GQA part of
-``repro/models/attention.py``).
+"""Attention (counterpart of ``repro/models/attention.py``): GQA and MLA
+(multi-head latent attention), each full-sequence and one-token decode.
 
 Dispatch follows the tensor's device. On the card every full-sequence GQA
 attention goes through the flash kernel (``kernels/ops.py:flash_attention``,
@@ -22,8 +22,17 @@ returns a new cache). On the card it attends through the flash-decode
 kernel (``kernels/ops.py:flash_decode``, kernel B6) over the whole cache
 with ``length = pos + 1``; on the CPU it runs the reference's einsum path.
 
+MLA (MiniCPM3, DeepSeek-V2) calls no kernel, as the reference's MLA calls
+none: its full-sequence forward expands k/v from the latent and runs the
+dense softmax below ``ATTN_BLOCK_THRESHOLD`` tokens and
+``blockwise_attention`` (q.k width nope + rope, v width ``v_head_dim``)
+at and above it, on both devices; its decode is matrix-absorbed (scores
+in the kv_lora latent space) and writes the new ``ckv`` and ``kpe`` rows
+into the preallocated cache in place. Both round the scores to the
+compute dtype where the reference does, before they become f32.
+
 The reference's sharding constraints do nothing on one device and are
-left out. MLA is not ported (ROADMAP A15).
+left out.
 """
 from __future__ import annotations
 
@@ -34,7 +43,8 @@ import torch
 import torch.utils.checkpoint as ckpt
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, dense, dense_init
+from repro_torch.models.layers import (apply_rope, dense, dense_init,
+                                       rmsnorm, rmsnorm_init)
 from repro_torch.models.module import ParamFactory, Params
 
 NEG_INF = -1e9  # mask value of the XLA paths (finite, as in the reference)
@@ -186,31 +196,153 @@ def gqa_decode(p: Params, x: torch.Tensor, cache: Params, pos: int, cfg, *,
     return dense(p["wo"], out.reshape(B, 1, nq * hd)), cache
 
 
-def _check_gqa(cfg) -> None:
-    if cfg.attention != "gqa":
-        raise NotImplementedError(f"{cfg.attention!r} attention is not ported "
-                                  "(ROADMAP A15)")
+# ===========================================================================
+# MLA (multi-head latent attention)
+# ===========================================================================
+
+
+def mla_init(fac: ParamFactory, cfg) -> Params:
+    d, nh = cfg.d_model, cfg.num_heads
+    nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    p: Params = {}
+    if cfg.q_lora_rank > 0:
+        p["wq_a"] = dense_init(fac, d, cfg.q_lora_rank)
+        p["q_norm"] = rmsnorm_init(fac, cfg.q_lora_rank)
+        p["wq_b"] = dense_init(fac, cfg.q_lora_rank, nh * (nope + rope_d))
+    else:
+        p["wq"] = dense_init(fac, d, nh * (nope + rope_d))
+    p["wkv_a"] = dense_init(fac, d, cfg.kv_lora_rank + rope_d)
+    p["kv_norm"] = rmsnorm_init(fac, cfg.kv_lora_rank)
+    p["wkv_b"] = dense_init(fac, cfg.kv_lora_rank, nh * (nope + vd))
+    p["wo"] = dense_init(fac, nh * vd, d)
+    return p
+
+
+def _mla_q(p: Params, x: torch.Tensor, cfg, positions
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q_nope [..., nh, nope], roped q_pe [..., nh, rope])."""
+    nh, nope, rope_d = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    if cfg.q_lora_rank > 0:
+        q = dense(p["wq_b"], rmsnorm(p["q_norm"], dense(p["wq_a"], x),
+                                     cfg.norm_eps))
+    else:
+        q = dense(p["wq"], x)
+    q = q.reshape(*x.shape[:-1], nh, nope + rope_d)
+    return q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)
+
+
+def _mla_kv_latent(p: Params, x: torch.Tensor, cfg, positions
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The compressed cache entries: normed c_kv [B, S, kv_lora] and the
+    roped k_pe [B, S, rope] of the one head that every q head shares."""
+    kv_a = dense(p["wkv_a"], x)
+    c_kv = rmsnorm(p["kv_norm"], kv_a[..., :cfg.kv_lora_rank], cfg.norm_eps)
+    k_pe = kv_a[..., cfg.kv_lora_rank:]
+    k_pe = apply_rope(k_pe[..., None, :], positions, cfg.rope_theta)[..., 0, :]
+    return c_kv, k_pe
+
+
+def mla_forward(p: Params, x: torch.Tensor, cfg, *,
+                positions: Optional[torch.Tensor] = None,
+                causal: bool = True) -> torch.Tensor:
+    """Full-sequence MLA with k/v expanded from the latent. x: [B, S, D]
+    -> [B, S, D]."""
+    B, S, _ = x.shape
+    nh, nope, rope_d = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    vd = cfg.v_head_dim
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q_nope, q_pe = _mla_q(p, x, cfg, positions)
+    c_kv, k_pe = _mla_kv_latent(p, x, cfg, positions)
+    kv = dense(p["wkv_b"], c_kv).reshape(B, S, nh, nope + vd)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    scale = 1.0 / math.sqrt(nope + rope_d)
+    if S >= ATTN_BLOCK_THRESHOLD:
+        # the shared rope head folded into every head's k: q' = [q_nope |
+        # q_pe], k' = [k_nope | k_pe]
+        k_pe_b = k_pe[:, :, None, :].expand(B, S, nh, rope_d)
+        out = blockwise_attention(torch.cat([q_nope, q_pe], dim=-1),
+                                  torch.cat([k_nope, k_pe_b], dim=-1), v,
+                                  causal=causal, scale=scale)
+    else:
+        # two products in the compute dtype, their sum rounded there too,
+        # then f32
+        scores = (torch.einsum("bsnh,btnh->bnst", q_nope, k_nope)
+                  + torch.einsum("bsnh,bth->bnst", q_pe, k_pe)).float() * scale
+        if causal:
+            mask = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
+            scores = scores.masked_fill(~mask, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = torch.einsum("bnst,btnh->bsnh", probs, v)
+    return dense(p["wo"], out.reshape(B, S, nh * vd))
+
+
+def mla_init_cache(cfg, batch: int, max_seq: int, dtype, device) -> Params:
+    return {"ckv": torch.zeros((batch, max_seq, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "kpe": torch.zeros((batch, max_seq, cfg.qk_rope_dim),
+                               dtype=dtype, device=device)}
+
+
+def mla_decode(p: Params, x: torch.Tensor, cache: Params, pos: int, cfg, *,
+               steps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               ) -> Tuple[torch.Tensor, Params]:
+    """Matrix-absorbed one-token decode: attention runs in the kv_lora
+    latent space, and the cache holds only the latents. x: [B, 1, D];
+    ``pos`` and ``steps`` as ``gqa_decode``'s. Writes the new ``ckv`` and
+    ``kpe`` rows into ``cache`` in place and returns (out [B, 1, D],
+    cache)."""
+    B = x.shape[0]
+    nh, nope, rope_d = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    vd, lora = cfg.v_head_dim, cfg.kv_lora_rank
+    pos = int(pos)
+    if steps is None:
+        steps = decode_positions(B, pos, x.device)
+    positions = steps[0]
+    q_nope, q_pe = _mla_q(p, x, cfg, positions)  # [B, 1, nh, nope / rope]
+    c_new, kpe_new = _mla_kv_latent(p, x, cfg, positions)
+    ckv, kpe = cache["ckv"], cache["kpe"]
+    ckv[:, pos] = c_new[:, 0].to(ckv.dtype)
+    kpe[:, pos] = kpe_new[:, 0].to(kpe.dtype)
+    S = ckv.shape[1]
+    wkv_b = p["wkv_b"]["w"].reshape(lora, nh, nope + vd).to(x.dtype)
+    wk_b, wv_b = wkv_b[..., :nope], wkv_b[..., nope:]
+    # the k projection absorbed into q: q_lat [B, 1, nh, lora]
+    q_lat = torch.einsum("bqnd,lnd->bqnl", q_nope, wk_b)
+    scale = 1.0 / torch.sqrt(torch.tensor(float(nope + rope_d)))
+    scores = (torch.einsum("bqnl,bsl->bnqs", q_lat, ckv)
+              + torch.einsum("bqnh,bsh->bnqs", q_pe, kpe)).float() * scale
+    valid = torch.arange(S, device=x.device) <= pos
+    scores = scores.masked_fill(~valid, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out_lat = torch.einsum("bnqs,bsl->bqnl", probs, ckv)
+    out = torch.einsum("bqnl,lnd->bqnd", out_lat, wv_b).reshape(B, 1, nh * vd)
+    return dense(p["wo"], out), cache
+
+
+# ===========================================================================
+# Dispatch by cfg.attention
+# ===========================================================================
 
 
 def attn_init(fac: ParamFactory, cfg) -> Params:
-    _check_gqa(cfg)
-    return gqa_init(fac, cfg)
+    return mla_init(fac, cfg) if cfg.attention == "mla" else gqa_init(fac, cfg)
 
 
 def attn_forward(p: Params, x: torch.Tensor, cfg, *,
                  positions: Optional[torch.Tensor] = None,
                  causal: bool = True) -> torch.Tensor:
-    _check_gqa(cfg)
-    return gqa_forward(p, x, cfg, positions=positions, causal=causal)
+    fn = mla_forward if cfg.attention == "mla" else gqa_forward
+    return fn(p, x, cfg, positions=positions, causal=causal)
 
 
 def attn_init_cache(cfg, batch: int, max_seq: int, dtype, device) -> Params:
-    _check_gqa(cfg)
-    return gqa_init_cache(cfg, batch, max_seq, dtype, device)
+    fn = mla_init_cache if cfg.attention == "mla" else gqa_init_cache
+    return fn(cfg, batch, max_seq, dtype, device)
 
 
 def attn_decode(p: Params, x: torch.Tensor, cache: Params, pos: int, cfg, *,
                 steps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Params]:
-    _check_gqa(cfg)
-    return gqa_decode(p, x, cache, pos, cfg, steps=steps)
+    fn = mla_decode if cfg.attention == "mla" else gqa_decode
+    return fn(p, x, cache, pos, cfg, steps=steps)

@@ -13,6 +13,7 @@ copy and hands back channels-last output, which permutes back to NHWC.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -70,9 +71,20 @@ def norm(p: Params, x: torch.Tensor, kind: str, eps: float = 1e-5
 
 
 def activation(name: str):
-    """``jax.nn``'s activations; its gelu is the tanh approximation."""
-    return {"silu": F.silu, "relu": F.relu,
-            "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
+    """``jax.nn``'s activations; its gelu is the tanh approximation
+    (``gelu``)."""
+    return {"silu": F.silu, "relu": F.relu, "gelu": gelu}[name]
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh approximation) with the reference's
+    roundings: sqrt(2 / pi) and 0.044715 rounded to x's dtype first, x^3 as
+    x (x x), every op in x's dtype. ``F.gelu`` computes in f32 with the
+    exact constant and rounds once: in bf16 it differs in more than half of
+    an sLSTM block's FFN outputs."""
+    c = float(torch.tensor(math.sqrt(2 / math.pi)).to(x.dtype))
+    k = float(torch.tensor(0.044715).to(x.dtype))
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * (x * x))))))
 
 
 class _Silu(torch.autograd.Function):

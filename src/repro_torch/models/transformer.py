@@ -1,6 +1,8 @@
 """The LM: embed -> segments of stacked layers -> head (counterpart of
-``repro/models/transformer.py``), for the dense GQA family and the hybrid
-Zamba2 family (Mamba2 layers and weight-tied shared attention).
+``repro/models/transformer.py``), for the dense family (GQA or MLA
+attention), the hybrid Zamba2 family (Mamba2 layers and weight-tied shared
+attention) and the xLSTM family (mLSTM layers, every ``slstm_every``-th an
+sLSTM).
 
 ``LM`` exposes the decomposed interface SmartFreeze's progressive trainer
 needs: ``embed`` / ``run_layers(lo, hi)`` / ``head``. Layers are stored
@@ -12,10 +14,10 @@ A hybrid model's shared-attention segments own no params: their layers use
 ``init_cache`` / ``decode_step`` are the one-token decode the serving
 loop (``launch/serve.py``) steps: the caches are preallocated per
 segment (stacked [n_layers, ...] for a segment of layers, one KV cache per
-shared-attention occurrence) and each step writes its k/v rows and Mamba2
-states into them in place, returning the same dict.
+shared-attention occurrence) and each step writes its k/v rows, MLA
+latents and recurrent states into them in place, returning the same dict.
 
-The MoE and xLSTM layer kinds and modality frontends wait for ROADMAP A15.
+The MoE layer kind and the modality frontends wait for ROADMAP A15.
 """
 from __future__ import annotations
 
@@ -39,10 +41,24 @@ def _dt(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
+ATTN_KINDS = ("attn_mlp", "shared_attn")
+# the recurrent kinds: (init, full-sequence forward, state init, one step)
+RECURRENT = {
+    "mamba2": (ssm_mod.mamba2_init, ssm_mod.mamba2_forward,
+               ssm_mod.mamba2_init_state, ssm_mod.mamba2_step),
+    "mlstm": (ssm_mod.mlstm_init, ssm_mod.mlstm_forward,
+              ssm_mod.mlstm_init_state, ssm_mod.mlstm_step),
+    "slstm": (ssm_mod.slstm_init, ssm_mod.slstm_forward,
+              ssm_mod.slstm_init_state, ssm_mod.slstm_step),
+}
+
+
 def _check_kind(kind: str) -> None:
-    if kind not in ("attn_mlp", "shared_attn", "mamba2"):
-        raise NotImplementedError(f"layer kind {kind!r} is not ported "
+    if kind == "attn_moe":
+        raise NotImplementedError("layer kind 'attn_moe' is not ported "
                                   "(ROADMAP A15)")
+    if kind not in ATTN_KINDS and kind not in RECURRENT:
+        raise ValueError(kind)
 
 
 def mlp_init(fac: ParamFactory, cfg, d_ff: int) -> Params:
@@ -58,9 +74,9 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
 
 def layer_init(fac: ParamFactory, cfg, kind: str) -> Params:
     _check_kind(kind)
-    if kind == "mamba2":
+    if kind in RECURRENT:
         return {"ln": norm_init(fac, cfg.d_model, cfg.norm),
-                "mix": ssm_mod.mamba2_init(fac, cfg)}
+                "mix": RECURRENT[kind][0](fac, cfg)}
     return {"ln1": norm_init(fac, cfg.d_model, cfg.norm),
             "attn": attn.attn_init(fac, cfg),
             "ln2": norm_init(fac, cfg.d_model, cfg.norm),
@@ -73,8 +89,8 @@ def layer_apply(p: Params, x: torch.Tensor, cfg, kind: str, *,
     loss is 0."""
     _check_kind(kind)
     aux = torch.zeros((), device=x.device)
-    if kind == "mamba2":
-        return x + ssm_mod.mamba2_forward(
+    if kind in RECURRENT:
+        return x + RECURRENT[kind][1](
             p["mix"], norm(p["ln"], x, cfg.norm, cfg.norm_eps), cfg), aux
     h = x + attn.attn_forward(p["attn"], norm(p["ln1"], x, cfg.norm,
                                               cfg.norm_eps), cfg, causal=causal)
@@ -85,8 +101,8 @@ def layer_apply(p: Params, x: torch.Tensor, cfg, kind: str, *,
 def layer_init_cache(cfg, kind: str, batch: int, max_seq: int, dtype,
                      device) -> Params:
     _check_kind(kind)
-    if kind == "mamba2":
-        return ssm_mod.mamba2_init_state(cfg, batch, dtype, device)
+    if kind in RECURRENT:
+        return RECURRENT[kind][2](cfg, batch, dtype, device)
     return attn.attn_init_cache(cfg, batch, max_seq, dtype, device)
 
 
@@ -95,8 +111,8 @@ def layer_decode(p: Params, x: torch.Tensor, cache: Params, pos: int, cfg,
     """One-token layer. x: [B, 1, D]; ``steps`` as ``attn.gqa_decode``'s.
     Writes the layer's cache or state in place and returns (y, cache)."""
     _check_kind(kind)
-    if kind == "mamba2":
-        y, cache = ssm_mod.mamba2_step(
+    if kind in RECURRENT:
+        y, cache = RECURRENT[kind][3](
             p["mix"], norm(p["ln"], x, cfg.norm, cfg.norm_eps), cache, cfg)
         return x + y, cache
     a, cache = attn.attn_decode(p["attn"], norm(p["ln1"], x, cfg.norm,
@@ -123,11 +139,10 @@ class LM:
     device: torch.device = "cuda"
 
     def __post_init__(self):
-        if self.cfg.family not in ("dense", "hybrid") or \
-                self.cfg.attention != "gqa":
+        if self.cfg.family not in ("dense", "hybrid", "ssm"):
             raise NotImplementedError(
-                f"{self.cfg.name}: only the dense GQA and hybrid families "
-                "are ported (ROADMAP A15)")
+                f"{self.cfg.name}: the {self.cfg.family} family is not "
+                "ported (ROADMAP A15)")
         self.device = resolve_device(self.device)
 
     def _build(self, fac: ParamFactory) -> Params:
@@ -225,9 +240,13 @@ class LM:
     def init_cache(self, batch: int, max_seq: int) -> Dict:
         """Zeroed caches on the model's device, per segment: a stack for a
         segment of layers ({"k", "v"} of [n_layers, batch, max_seq, Hkv, d]
-        in the compute dtype; Mamba2's {"h", "conv"} of [n_layers, batch,
-        H, hd, N] f32 and [n_layers, batch, k - 1, channels]), one unstacked
-        KV cache for a shared-attention occurrence."""
+        in the compute dtype; MLA's {"ckv", "kpe"} of [n_layers, batch,
+        max_seq, kv_lora / rope]; the recurrent kinds' states, f32 but for
+        "conv": Mamba2's {"h", "conv"}, mLSTM's {"C", "n", "m", "conv"},
+        sLSTM's {"c", "n", "h", "m", "conv"}), one unstacked KV cache for a
+        shared-attention occurrence. Every leaf is zero, xLSTM's "m"
+        stabilizers too, as the reference's stacked caches are (its
+        one-layer state inits start "m" at -inf)."""
         cfg = self.cfg
         dtype = _dt(cfg.compute_dtype)
         caches = {}
@@ -247,9 +266,9 @@ class LM:
     def decode_step(self, params: Params, batch: Dict, cache: Dict, pos: int
                     ) -> Tuple[torch.Tensor, Dict]:
         """One-token decode. batch['tokens']: [B, 1]; ``pos`` (a host
-        integer) is its position. Writes every attention layer's k/v row at
-        ``pos`` and every Mamba2 layer's state into ``cache`` in place and
-        returns (logits [B, 1, V], cache)."""
+        integer) is its position. Writes every attention layer's k/v (or
+        MLA latent) row at ``pos`` and every recurrent layer's state into
+        ``cache`` in place and returns (logits [B, 1, V], cache)."""
         h = self.embed(params, batch)
         steps = attn.decode_positions(h.shape[0], int(pos), h.device)
         for kind, si, s_lo, s_hi in self._seg_table():

@@ -524,11 +524,3 @@ def test_serve_trajectory_matches_reference(monkeypatch, capsys, test_arch, kw):
     np.testing.assert_array_equal(got["generated"], want["generated"])
     assert tline.split(" in ")[0] == jline.split(" in ")[0]
 
-
-def test_xlstm_kinds_raise_naming_the_roadmap():
-    _, tcfg = _cfgs()
-    for fn in (tssm.mlstm_init, tssm.mlstm_forward, tssm.slstm_step):
-        with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-            fn(None, tcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfigs.get("xlstm-350m")

@@ -212,11 +212,12 @@ def test_port_imports_without_jax_or_reference():
             "'repro_torch.core.selector._threefry', "
             "'repro_torch.core.selector.similarity', "
             "'repro_torch.core.selector.rlcd', 'repro_torch.core.time_model', "
-            "'repro_torch.fl.client'):\n"
+            "'repro_torch.fl.client', 'repro_torch.configs.xlstm_350m', "
+            "'repro_torch.configs.minicpm3_4b'):\n"
             "    assert n in names, n\n"
             "from repro_torch import configs\n"
             "assert configs.names() == ['deepseek-coder-33b', 'llama3-8b', "
-            "'qwen2-72b', 'zamba2-7b']\n"
+            "'minicpm3-4b', 'qwen2-72b', 'xlstm-350m', 'zamba2-7b']\n"
             "assert not any(k == 'jax' or k.startswith('jax.') or k == 'repro' "
             "or k.startswith('repro.') for k, v in sys.modules.items() "
             "if v is not None)\n")
