@@ -111,13 +111,17 @@ def ingraph_topk(flat: torch.Tensor, k: int
 
 
 def ingraph_sparse_aggregate(idx: torch.Tensor, vals: torch.Tensor,
-                             weights: torch.Tensor, length: int
-                             ) -> torch.Tensor:
+                             weights: torch.Tensor, length: int, *,
+                             sorted_rows: bool = False) -> torch.Tensor:
     """Server-side Eq. 1 over K clients' sparse uplinks: dense [length]
     f32 ``sum_i weights[i] * scatter(idx[i], vals[i])`` in one kernel
-    launch. idx/vals: [K, k]; weights: [K] normalized."""
+    launch, summed in client order. idx/vals: [K, k]; weights: [K]
+    normalized. ``sorted_rows=True`` when every row of idx ascends, as
+    ``ingraph_topk`` sends it: the fold then runs no sort first
+    (``kernels/sparse_agg.py``)."""
     return kernel_ops.sparse_cohort_add(idx.contiguous(), vals.contiguous(),
-                                        weights.contiguous(), length)
+                                        weights.contiguous(), length,
+                                        sorted_rows=sorted_rows)
 
 
 def ingraph_compress_leaf(flat_start: torch.Tensor, flat_end: torch.Tensor,
@@ -138,5 +142,6 @@ def ingraph_compress_leaf(flat_start: torch.Tensor, flat_end: torch.Tensor,
     vals = torch.stack([v for _, v in rows])
     # the kept entries were transmitted exactly, so their residual is zero
     new_residual = delta.scatter(1, idx.long(), 0.0)
-    agg = flat_start + ingraph_sparse_aggregate(idx, vals, weights, L)
+    agg = flat_start + ingraph_sparse_aggregate(idx, vals, weights, L,
+                                                sorted_rows=True)
     return agg, new_residual, idx, vals

@@ -23,12 +23,21 @@ from repro_torch.models.module import tree_leaves
 
 
 def sparse_cohort_add(idx: torch.Tensor, vals: torch.Tensor,
-                      weights: torch.Tensor, length: int) -> torch.Tensor:
+                      weights: torch.Tensor, length: int, *,
+                      sorted_rows: bool = False) -> torch.Tensor:
     """Dense [length] f32 fold of K clients' top-k (idx, vals) rows, the
-    compressed-uplink Eq. 1 aggregation (``kernels/sparse_agg.py``)."""
+    compressed-uplink Eq. 1 aggregation (``kernels/sparse_agg.py``), summed
+    client by client, then entry by entry, on either device.
+    ``sorted_rows=True`` promises that every row of idx is non-decreasing:
+    on the card the kernel then skips the wrapper's sort and checks the
+    promise itself; on the CPU a broken promise raises ``ValueError``."""
     if idx.device.type == "cpu":
+        if sorted_rows and idx.dim() == 2 and bool(
+                (idx[:, 1:] < idx[:, :-1]).any()):
+            raise ValueError("sorted_rows=True, but a row of idx decreases")
         return ref.sparse_cohort_add_ref(idx, vals, weights, length)
-    return sparse_agg.sparse_cohort_add(idx, vals, weights, length)
+    return sparse_agg.sparse_cohort_add(idx, vals, weights, length,
+                                        sorted_rows=sorted_rows)
 
 
 class _FlashAttention(torch.autograd.Function):

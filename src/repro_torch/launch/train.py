@@ -112,8 +112,10 @@ def train(arch: str, *, reduced: bool = True, steps: int = 40, batch: int = 8,
             ck = None
         if ck is not None:
             meta, tree = ck["metadata"], ck["tree"]
-            params = tree_like(params, tree["params"])
-            rng = unpack_rng_state(tree["rng"])
+            # legacy checkpoints stored bare params, and no rng state
+            params = tree_like(params, tree.get("params", tree))
+            if "rng" in tree:
+                rng = unpack_rng_state(tree["rng"])
             restored_pace = tree.get("pace")
             restored_active = tree.get("active")  # with the output module
             restored_global = meta.get("global_round")

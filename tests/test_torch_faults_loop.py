@@ -239,8 +239,8 @@ def test_fedavg_crash_and_hang_compressed_matches_reference(monkeypatch,
     folds = []
     fold = kernel_ops.sparse_cohort_add
     monkeypatch.setattr(kernel_ops, "sparse_cohort_add",
-                        lambda idx, *a: folds.append(idx.shape[0])
-                        or fold(idx, *a))
+                        lambda idx, *a, **kw: folds.append(idx.shape[0])
+                        or fold(idx, *a, **kw))
     jclients = _clients(JVision, j_dirichlet, j_fleet)
     tclients = _clients(TVision, t_dirichlet, t_fleet)
     times = sorted(c.num_samples / c.capability for c in tclients)

@@ -56,6 +56,18 @@ from repro_torch.models import transformer as ttr
 from repro_torch.models.module import tree_leaves
 from repro_torch.optim import sgd as tsgd
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One torch thread: this file's CPU work is small ops, and in a
+    parallel run of the suite every pytest worker's torch pool spinning
+    over all the cores oversubscribes them (``tests/test_torch_quant.py``).
+    The results do not depend on it beyond the stated tolerances."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SMALL = dict(num_layers=4, num_freeze_blocks=2, num_kv_heads=2)
 F32 = dict(param_dtype="float32", compute_dtype="float32")
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -478,6 +490,48 @@ def test_train_trajectory_matches_reference(monkeypatch, test_arch,
             np.testing.assert_allclose(a["perturbation"], b["perturbation"],
                                        **TRAJ_TOL)
         assert a["seconds"] > 0
+    _close_trees(got["params"], want["params"], TRAJ_TOL)
+
+
+@pytest.mark.parametrize("legacy", ["bare params", "params without rng"])
+def test_train_resumes_legacy_checkpoints_as_reference(monkeypatch, tmp_path,
+                                                       test_arch, legacy):
+    """The reference's ``train(resume=True)`` takes two older checkpoint
+    forms: a tree of bare params (no "params" key), and params without an
+    "rng" entry (the data stream then starts from the seed). Each is
+    written with the reference's checkpoint writer (stage 0, round 0, the
+    reference's init params moved by seeded noise, so that the resumed
+    runs start from what was saved), resumed in both packages from copies
+    of one directory, and the trajectories held as
+    ``test_train_trajectory_matches_reference`` holds them."""
+    import shutil
+
+    from repro.checkpoint import save_checkpoint as j_save
+
+    jm = jtr.build(jconfigs.get(test_arch).reduced())
+    rng = np.random.RandomState(3)
+    saved = jax.tree.map(
+        lambda a: np.asarray(a) + 0.01 * rng.randn(*a.shape).astype(
+            np.asarray(a).dtype), jm.init(jax.random.PRNGKey(0)))
+    tree = saved if legacy == "bare params" else {"params": saved}
+    j_save(str(tmp_path / "j"), 0, tree, metadata={"stage": 0, "round": 0})
+    shutil.copytree(tmp_path / "j", tmp_path / "t")
+    kw = dict(reduced=True, steps=4, batch=2, seq=40, log_every=100,
+              resume=True, pace_kwargs=dict(min_rounds=1, mu=1,
+                                            slope_lambda=5e-3, fit_window=3))
+    want = jtrain_mod.train(test_arch, ckpt_dir=str(tmp_path / "j"), **kw)
+    _patch_port_init(monkeypatch)
+    got = ttrain_mod.train(test_arch, ckpt_dir=str(tmp_path / "t"),
+                           device="cpu", **kw)
+    assert [(h["stage"], h["round"]) for h in got["history"]] == \
+        [(h["stage"], h["round"]) for h in want["history"]] == \
+        [(0, 1), (1, 0), (1, 1)]
+    for a, b in zip(got["history"], want["history"]):
+        np.testing.assert_allclose(a["loss"], b["loss"], **TRAJ_TOL)
+        assert (a["perturbation"] is None) == (b["perturbation"] is None)
+        if a["perturbation"] is not None:
+            np.testing.assert_allclose(a["perturbation"], b["perturbation"],
+                                       **TRAJ_TOL)
     _close_trees(got["params"], want["params"], TRAJ_TOL)
 
 

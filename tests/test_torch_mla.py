@@ -54,6 +54,18 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import transformer as ttr
 from repro_torch.models.module import tree_leaves
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One torch thread: this file's CPU work is small ops, and in a
+    parallel run of the suite every pytest worker's torch pool spinning
+    over all the cores oversubscribes them (``tests/test_torch_quant.py``).
+    The results do not depend on it beyond the stated tolerances."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "minicpm3-4b"
 F32 = dict(param_dtype="float32", compute_dtype="float32")
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -279,19 +291,39 @@ def test_lm_forward_and_loss_match_reference_f32():
 
 
 def test_lm_forward_and_loss_match_reference_bf16():
-    """bf16 logits and loss at the dense LM's bound (``LM_BF16_TOL``, as
-    ``tests/test_torch_lm.py`` holds Llama's); one MLA layer agrees almost
-    bit for bit, and the rest of the gap grows in the MLPs and norms as
-    Llama's does."""
+    """bf16 logits through the whole model against the reference run op by
+    op (``jax.disable_jit``: compiled, XLA keeps bf16 intermediates in f32
+    inside its fusions, as ``tests/test_torch_xlstm.py`` found), held by
+    the reference's own spread rule: no farther from the reference's bf16
+    logits than those lie from its f32 logits on the same params (0.060 at
+    this size; the port lies 0.047 away), and within twice that of the f32
+    logits. The loss within the larger of the reference's own bf16-f32
+    loss gap and 1e-2.
+
+    What parts the two packages, op by op: the MLP's activation.
+    ``activation("silu")`` is ``F.silu``, which rounds x * sigmoid(x) to
+    bf16 once, where the reference rounds each of ``jax.nn.silu``'s ops;
+    it differs from the reference in about two fifths of a layer's gate
+    outputs by one bf16 ulp (``layers.silu`` keeps the reference's
+    roundings and agrees bit for bit, but costs four more elementwise
+    passes a layer on the card). Past it, the layer's norms, MLA attention
+    and residuals agree bit for bit, and the down projection's GEMM
+    differs in one output in 3,072 by one ulp (its summation order)."""
     jcfg, tcfg = _cfgs()
     jm, params, tm, tparams = _model_and_params(jcfg, tcfg)
+    jm32 = jtr.build(dataclasses.replace(jcfg, **F32))
+    params32 = jax.tree.map(lambda a: a.astype(jnp.float32), params)
     jb, tb = _batch(jcfg)
-    jlog, _ = jax.jit(jm.forward)(params, jb)
-    np.testing.assert_allclose(_tnp(tm.forward(tparams, tb)[0]), _np(jlog),
-                               **LM_BF16_TOL)
-    np.testing.assert_allclose(float(tm.loss(tparams, tb)),
-                               float(jax.jit(jm.loss)(params, jb)),
-                               **LM_BF16_TOL)
+    with jax.disable_jit():
+        ref16 = _np(jm.forward(params, jb)[0])
+    ref32 = _np(jax.jit(jm32.forward)(params32, jb)[0])
+    got = _tnp(tm.forward(tparams, tb)[0])
+    spread = np.abs(ref16 - ref32).max()
+    assert np.abs(got - ref16).max() <= spread
+    assert np.abs(got - ref32).max() <= 2 * spread
+    l16 = float(jax.jit(jm.loss)(params, jb))
+    l32 = float(jax.jit(jm32.loss)(params32, jb))
+    assert abs(float(tm.loss(tparams, tb)) - l16) <= max(abs(l16 - l32), 1e-2)
 
 
 @pytest.mark.parametrize("stage", [0, 1])

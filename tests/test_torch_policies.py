@@ -76,6 +76,19 @@ MIXED = {2: "int8", 0: "f32", 4: None, 3: "fp16", 1: "int8", 5: "fp16"}
 # ---------------------------------------------------------------------------
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One torch thread. The port's CPU work in this file is small ops,
+    and in a parallel run of the suite every pytest worker's torch pool
+    spinning over all the cores oversubscribes them: in such a run a test
+    whose port work takes 1.5 s alone took 167 s. The results do not
+    depend on it beyond the stated tolerances."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("seed,round_idx,ids", [
     (0, 0, range(40)), (5, 3, range(40)), (7, 123456, [3, 1, 2, 99, 5]),
     (2 ** 40 + 3, 2 ** 62 + 11, range(10_000, 10_064)),

@@ -64,6 +64,19 @@ F32 = dict(rtol=1e-4, atol=1e-5)
 BF16 = dict(rtol=2e-2, atol=2e-3)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One torch thread. The port's CPU work in this file is small ops,
+    and in a parallel run of the suite every pytest worker's torch pool
+    spinning over all the cores oversubscribes them: in such a run a test
+    whose port work takes 1.5 s alone took 167 s. The results do not
+    depend on it beyond the stated tolerances."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _worlds(n=600, k=6):
     """The reference's ``tests/test_quant.py`` world (600 samples of 16 x 16
     images over 6 clients), built by each package."""

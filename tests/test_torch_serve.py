@@ -41,6 +41,18 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import transformer as ttr
 from repro_torch.models.module import tree_leaves
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One torch thread: this file's CPU work is small ops, and in a
+    parallel run of the suite every pytest worker's torch pool spinning
+    over all the cores oversubscribes them (``tests/test_torch_quant.py``).
+    The results do not depend on it beyond the stated tolerances."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32 = dict(param_dtype="float32", compute_dtype="float32")
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 LM_BF16_TOL = dict(rtol=2e-2, atol=6e-2)
