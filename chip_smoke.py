@@ -17,9 +17,9 @@ Phases, each of which exits non-zero on failure:
  3a. hold the flash-decode kernel (B6) against its plain version at the
      Llama-3-8B serving shape, the decode_32k cut and its variants
      (Zamba2-7B's head dim 112, hubert-xlarge's 80, the MLA widths 96 and
-     192, dk 96 with dv 64, f32 at 256), with its times; each case checks
-     that one call runs exactly one device kernel and that a rerun gives
-     equal bits;
+     192, dk 96 with dv 64, f32 at 256, grok-1-314b's g = 6), with its
+     times; each case checks that one call runs exactly one device kernel
+     and that a rerun gives equal bits;
  3b. hold the block-perturbation reduction (B3), the pace controller's
      Eq. 2 norms, against its plain version: f32, bf16 and mixed operands,
      n from 3 to the Llama-3-8B stage-0 pace block and past 2^31,
@@ -90,6 +90,7 @@ Phases, each of which exits non-zero on failure:
      Llama-3-8B training shape and its variants (Zamba2-7B's head dim 112,
      hubert-xlarge's 80, the run-time widths 96, 256 and dk 192 with dv
      128, the xLSTM-350M and MiniCPM3-4B proxies' d 256 and d 64 at g = 1,
+     grok-1-314b's g = 6 and deepseek-v2-236b's 128-head proxies,
      sequences of 1 and 17 among them), with its times, its plan and
      the registers and spills of each instantiation; a rerun must give
      equal bits;
@@ -148,6 +149,15 @@ Phases, each of which exits non-zero on failure:
      of 64): train, profile stages 0 and 5, the small card-vs-CPU check
      with one ``mla_forward`` at S = 2,048 (the blockwise branch) on both,
      serve (no B6), a profiled decode step, the small serve check;
+ 20d. the MoE family at full width with depth cut (``MOE_CUTS``): one
+     grok-1-314b ``attn_moe`` layer forward and backward (one B4 launch at
+     g = 6, finite gradients, device ms by class, capacity drops);
+     deepseek-v2-236b at depth 2 through ``train`` (2 stages x 2 rounds,
+     B4 in the proxy, B3 in the observes, peak memory); the small grok-1
+     and deepseek-v2 card-vs-CPU training checks; grok-1 served at depth 4
+     and deepseek-v2 at depth 7 (batch 8, 192 + 64 tokens: grok-1 1,024 B6
+     launches at g = 6, deepseek-v2 none), each with a profiled decode step and the small
+     serve card-vs-CPU check;
  21. hold the dequantizing GEMM (B2) against its plain version at the
      quant-aware path's shape (M 32, K 16,384, N 512, int8 q with row
      scales) and its variants (bf16 w, K 32,768, M 4,096, col, full and
@@ -2735,6 +2745,12 @@ FLASH_CASES = [("main", 4, 1024, 32, 8, 128, "bfloat16", True),
                ("xlstm proxy d=256", 4, 1024, 4, 4, 256, "bfloat16", True),
                ("minicpm3 proxy d=64", 4, 1024, 40, 40, 64, "bfloat16",
                 True),
+               # grok-1-314b's layers, 48 q heads over 8 kv heads (g = 6,
+               # no power of two), and deepseek-v2-236b's GQA proxies (128
+               # heads of 128)
+               ("grok-1 g=6", 4, 1024, 48, 8, 128, "bfloat16", True),
+               ("deepseek-v2 proxy", 4, 1024, 128, 128, 128, "bfloat16",
+                True),
                # a sequence shorter than one position tile and one kv tile
                ("S=1", 4, 1, 32, 8, 128, "bfloat16", True),
                ("S=17", 4, 17, 32, 8, 128, "bfloat16", True)]
@@ -2763,9 +2779,10 @@ def phase_flash_attention(build_logs=None):
     a long sequence, full attention, g = 1, f32 at head_dim 16, Zamba2-7B's
     head dim 112 and hubert-xlarge's 80 (its encoder's full attention, bf16
     and f32), the output module's proxies of xLSTM-350M (4 heads of 256)
-    and MiniCPM3-4B (40 of 64), the run-time widths 96 and 256 and dk 192
-    with dv 128, and
-    sequences of 1 and 17. Without the causal mask, the plain version one
+    and MiniCPM3-4B (40 of 64), grok-1-314b's layers (48 q heads over 8 kv
+    heads, g = 6) and deepseek-v2-236b's proxies (128 heads of 128), the
+    run-time widths 96 and 256 and dk 192 with dv 128, and sequences of 1
+    and 17. Without the causal mask, the plain version one
     key short must break the bound somewhere, so that an off-by-one kernel
     could not pass it; a rerun must give equal bits. Each case prints the
     kernel's plan and the registers and spills of the instantiation it
@@ -2891,7 +2908,10 @@ def phase_flash_attention(build_logs=None):
             "d256_xlstm": next(r for r in rows
                                if r["name"] == "xlstm proxy d=256"),
             "d64_minicpm3": next(r for r in rows
-                                 if r["name"] == "minicpm3 proxy d=64")}
+                                 if r["name"] == "minicpm3 proxy d=64"),
+            "g6_grok1": next(r for r in rows if r["name"] == "grok-1 g=6"),
+            "d128_deepseek_v2_proxy": next(
+                r for r in rows if r["name"] == "deepseek-v2 proxy")}
 
 
 LM_PACE = dict(min_rounds=3, mu=2, slope_lambda=5e-3, low_memory=True)
@@ -2899,12 +2919,13 @@ LM_PACE = dict(min_rounds=3, mu=2, slope_lambda=5e-3, low_memory=True)
 
 def _gqa_layers(cfg, kinds):
     """How many of ``kinds`` are GQA attention layers, the only kind that
-    launches B4 (full sequence) or B6 (decode): attention layers when
+    launches B4 (full sequence) or B6 (decode): attention layers (dense,
+    MoE and shared: ``attn_mlp``, ``attn_moe``, ``shared_attn``) when
     ``cfg.attention`` is GQA. MLA, Mamba2, mLSTM and sLSTM layers launch
-    neither."""
+    neither, and the MoE FFN launches no kernel."""
     if cfg.attention != "gqa":
         return 0
-    return sum(k in ("attn_mlp", "shared_attn") for k in kinds)
+    return sum(k in ("attn_mlp", "attn_moe", "shared_attn") for k in kinds)
 
 
 def _expected_lm_launches(cfg, history):
@@ -2930,7 +2951,7 @@ def _expected_lm_launches(cfg, history):
     return flash, ssd, b3
 
 
-F32_PARAMS = ("A_log", "D", "dt_bias")
+F32_PARAMS = ("A_log", "D", "dt_bias", "router")
 
 
 def _named_leaves(tree, key=None):
@@ -2957,7 +2978,10 @@ def phase_lm_main_path(card, arch="llama3-8b", steps=8, expect=(172, 0, 72),
     3584, 6 stages x 1 round. xLSTM-350M: 24 layers (21 mLSTM, 3 sLSTM),
     d_model 1024, 4 stages x 2 rounds. MiniCPM3-4B: 62 MLA layers, d_model
     2560, 40 heads, 6 stages x 2 rounds, ``use_pallas=False`` (the
-    reference's trainer refuses it for MLA). The pace controller's anchored
+    reference's trainer refuses it for MLA). deepseek-v2-236b at depth 2
+    (``MOE_CUTS``: its dense layer, then one MoE layer of 160 experts, top-6,
+    2 shared; MLA, 128 heads), 2 stages x 2 rounds, ``use_pallas=False``:
+    B4 only in stage 0's GQA proxy. The pace controller's anchored
     window (low_memory) keeps two f32 copies of the active block on the
     card instead of six (the exact window does not fit beside Llama's
     round) and takes its norms with B3. ``expect`` is (flash attention,
@@ -3001,7 +3025,8 @@ def phase_lm_main_path(card, arch="llama3-8b", steps=8, expect=(172, 0, 72),
     leaves = tree_leaves(out["params"])
     assert all(l.device.type == "cuda" for l in leaves)
     assert all(bool(torch.isfinite(l).all()) for l in leaves)
-    # bf16 params, but for Mamba2's A_log, D and dt_bias, kept in f32
+    # bf16 params, but for Mamba2's A_log, D and dt_bias and the MoE
+    # router, kept in f32
     for key, leaf in _named_leaves(out["params"]):
         want = torch.float32 if key in F32_PARAMS else torch.bfloat16
         assert leaf.dtype == want, (key, leaf.dtype)
@@ -3013,6 +3038,135 @@ def phase_lm_main_path(card, arch="llama3-8b", steps=8, expect=(172, 0, 72),
         (launches, expect)
     assert sparse_agg.launches == 0
     return launches, out["params"], cfg
+
+
+# the MoE models' depth cuts on one card (every width as published): the
+# round step of any grok-1 block does not fit (a round holds about 14 bytes
+# an active parameter at its peak: the bf16 block, its gradients and their
+# clipped copy, the f32 update and the anchored pace window's two f32
+# copies; a block of one 4.92 B-param layer and its output module, 5.7 B,
+# would need about 80 GB), so grok-1 is served and one full-width layer
+# runs forward and backward; deepseek-v2 trains at depth 2 (its dense layer
+# and one 3.97 B-param MoE layer, one freeze block each). Each serving cut
+# is the deepest whose init fits: ``LM.init`` draws a stacked expert leaf
+# in f32 before it casts, so grok-1 at depth 4 peaks at 66.8 GB (depth 5
+# would need about 83 of the card's 85.0, not tried) and deepseek-v2 at
+# depth 7 (the dense layer and 6 MoE layers, 50.4 GB of weights) at 79.1. Serving does not use the
+# freeze blocks; its cuts keep one layer a block.
+MOE_CUTS = {"grok-1-314b-depth4": ("grok-1-314b", 4, 4),
+            "deepseek-v2-236b-depth2": ("deepseek-v2-236b", 2, 2),
+            "deepseek-v2-236b-depth7": ("deepseek-v2-236b", 7, 7)}
+
+
+def _register_moe_cuts():
+    import dataclasses
+    from repro_torch import configs
+    for name, (arch, layers, blocks) in MOE_CUTS.items():
+        configs.register(dataclasses.replace(
+            configs.get(arch), name=name, num_layers=layers,
+            num_freeze_blocks=blocks))
+
+
+def phase_moe_layer(card):
+    """One full-width grok-1-314b ``attn_moe`` layer (d_model 6144, 48 q / 8
+    kv heads of 128, 8 experts of 32,768, top-2; 4.92 B params, 9.84 GB in
+    bf16, random from a seed) forward and backward on the card through the
+    port's ``layer_apply`` with ``attention_impl="pallas"``, at the training
+    shape (batch 4 x 1024 tokens: 8 MoE chunks of 128, 40 slots an expert
+    a chunk). Loss: the output's mean square plus 0.01 x the MoE aux loss;
+    the loss and every gradient must be finite. B4 must launch exactly
+    once, in the forward (its backward is autograd through the plain
+    form), counted from 0. One warm-up, one run timed on the host clock
+    (ending in a synchronize), one under torch.profiler: device busy ms and
+    ms by kernel class. The capacity drops: the share of the layer's token
+    choices (4 x 1024 x 2) that no slot keeps, summed from the dispatch
+    one-hots of the counted forward (a wrapper that only records them).
+    Returns B4's launches."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import moe
+    from repro_torch.models.module import (ParamFactory, param_count,
+                                           tree_leaves)
+    from repro_torch.models.transformer import layer_apply, layer_init
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(configs.get("grok-1-314b"),
+                              attention_impl="pallas")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = layer_init(ParamFactory(gen, dev, torch.bfloat16), cfg, "attn_moe")
+    leaves = [leaf.requires_grad_() for leaf in tree_leaves(p)]
+    x = torch.randn(4, 1024, cfg.d_model, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    B, S = x.shape[:2]
+
+    def forward():
+        y, aux = layer_apply(p, x, cfg, "attn_moe")
+        return y.float().square().mean() + 0.01 * aux, aux
+
+    def step():
+        loss, aux = forward()
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return loss, aux, grads
+
+    step()  # warm-up
+    dispatch, kept = moe._dispatch_combine, []
+
+    def recording_dispatch(*args, **kwargs):
+        out = dispatch(*args, **kwargs)
+        kept.append(out[0].detach().float().sum())
+        return out
+
+    moe._dispatch_combine = recording_dispatch
+    fa.launches = 0
+    try:
+        loss, aux = forward()
+    finally:
+        moe._dispatch_combine = dispatch
+    fwd_launches = fa.launches
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    launches = fa.launches
+    assert fwd_launches == launches == 1, (fwd_launches, launches)
+    assert math.isfinite(float(loss.detach()))
+    assert math.isfinite(float(aux.detach()))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    del grads
+    t0 = time.perf_counter()
+    step()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+    by_class = _device_ms_by_class(prof)
+    assert len(kept) == S // moe.MOE_CHUNK, len(kept)
+    kept = float(sum(kept))
+    choices = B * S * cfg.experts_per_token
+    print(f"grok-1-314b attn_moe layer forward + backward (B={B}, S={S}, "
+          f"{param_count(p)} params) on {card}: wall_ms {wall_ms:.1f}, loss "
+          f"{float(loss.detach()):.6f}, aux {float(aux.detach()):.6f}, "
+          f"flash_attention "
+          f"launches {launches} (forward), capacity "
+          f"{moe._capacity(moe.MOE_CHUNK, cfg)} a chunk, dropped token "
+          f"choices {choices - kept:.0f} of {choices} "
+          f"({(choices - kept) / choices:.4f}), "
+          f"torch.cuda.max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()}")
+    if not by_class:
+        print("  torch.profiler recorded no device time: not measured")
+    else:
+        busy = sum(by_class.values())
+        print(f"  device busy ms {busy:.1f}, idle share "
+              f"{1 - busy / wall_ms:.3f}")
+        for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+            print(f"  {cls:>22}: {ms:9.2f} ms")
+    del p, leaves, x
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _device_ms_by_class(prof):
@@ -3226,8 +3380,11 @@ def _mla_blockwise_card_vs_cpu(cfg):
 def phase_small_lm_reference(arch="llama3-8b"):
     """The LM path on the card against the port's CPU path (itself held
     against the JAX package by tests/test_torch_lm.py and, for the hybrid,
-    xLSTM and MLA families, tests/test_torch_hybrid.py, test_torch_xlstm.py
-    and test_torch_mla.py), on the reduced ``arch`` in float32 (Llama-3-8B:
+    xLSTM, MLA and MoE families, tests/test_torch_hybrid.py,
+    test_torch_xlstm.py, test_torch_mla.py and test_torch_moe.py), on the
+    reduced ``arch`` in float32 (grok-1-314b: 4 MoE layers of 4 experts,
+    top-2; deepseek-v2-236b: a dense MLA layer, then 3 MoE layers;
+    Llama-3-8B:
     4 layers, d_model 64, 4 q / 4 kv heads; Zamba2-7B: 4 layers alternating
     Mamba2 and shared attention, d_model 64; xLSTM-350M: 3 mLSTM layers and
     an sLSTM; MiniCPM3-4B: 4 MLA layers, without ``use_pallas``; 2 stages x
@@ -3341,7 +3498,12 @@ def _decode_cases():
              [1024, 1, 1023, 517, 0, 64, 800, 33]),
             ("dk=96 dv=64", 8, 1024, 32, 8, (96, 64), "bfloat16",
              [1024, 1, 1023, 517, 0, 64, 800, 33]),
-            ("d=256 f32", 4, 1000, 16, 4, 256, "float32", [1000, 0, 999, 2])]
+            ("d=256 f32", 4, 1000, 16, 4, 256, "float32", [1000, 0, 999, 2]),
+            # grok-1-314b's serving shape (192 + 64 tokens): 48 q heads
+            # over 8 kv heads, g = 6, full and ragged
+            ("grok-1 g=6", 8, 256, 48, 8, 128, "bfloat16", [256] * 8),
+            ("grok-1 g=6 ragged", 8, 256, 48, 8, 128, "bfloat16",
+             [256, 1, 255, 128, 0, 64, 200, 17])]
 
 
 # (rtol, atol) of |err| <= atol + rtol |plain|. bf16: rtol 2^-7 is one or
@@ -3603,26 +3765,34 @@ def phase_decode_attention():
             "decode_32k": rows[3],
             "d112": next(r for r in rows if r["name"] == "d=112 g=1"),
             "d80": next(r for r in rows if r["name"] == "d=80 hubert"),
-            "dk96_dv64": next(r for r in rows if r["name"] == "dk=96 dv=64")}
+            "dk96_dv64": next(r for r in rows if r["name"] == "dk=96 dv=64"),
+            "g6_grok1": next(r for r in rows if r["name"] == "grok-1 g=6")}
 
 
-SERVE = dict(batch=8, prompt_len=960, gen_len=64)
-HYBRID_SERVE = dict(batch=8, prompt_len=192, gen_len=64)
+# Llama-3-8B's serving shape: 960 prompt + 64 generated tokens, 1,024 steps
+LLAMA_SERVE = dict(batch=8, prompt_len=960, gen_len=64)
+# every other model's serving shape: 192 + 64 tokens, 256 steps
+SERVE = dict(batch=8, prompt_len=192, gen_len=64)
 
 
 def phase_serve(card, arch="llama3-8b", shape=None, expect=32_768):
     """Full-width ``arch`` through launch/serve.py:serve on the card, bf16,
     random params from a seed, a batch of prompts stepped one token at a
     time, then greedy tokens. Llama-3-8B (32 layers, d_model 4096, 32 q /
-    8 kv heads, vocab 128256): batch 8, 960 prompt + 64 generated tokens,
-    1,024 decode steps over a 1,024-row cache. Zamba2-7B (13 shared attention
-    layers over 2 tied sets, 68 Mamba2 layers stepping their O(1)
-    recurrence): batch 8, 192 + 64 tokens, 256 steps. xLSTM-350M (24
+    8 kv heads, vocab 128256) at ``LLAMA_SERVE``, the default (batch 8,
+    960 + 64 tokens: 1,024 decode steps over a 1,024-row cache); every
+    other model at ``SERVE`` (batch 8, 192 + 64 tokens, 256 steps). Zamba2-7B (13 shared
+    attention layers over 2 tied sets, 68 Mamba2 layers stepping their
+    O(1) recurrence). xLSTM-350M (24
     mLSTM and sLSTM layers stepping their recurrences) and MiniCPM3-4B (62
     MLA layers decoding matrix-absorbed over their latent caches in plain
-    einsums): the same shape, no B6 launch. ``expect`` is B6's launches, one
-    per GQA attention layer and step; the path launches no other kernel. The last step's logits are kept (by a wrapper that only
-    records them) to check that they are finite. Returns B6's launches."""
+    einsums): no B6 launch. The MoE cuts (``MOE_CUTS``): grok-1-314b at depth 4 (4 ``attn_moe`` layers, GQA 48 q
+    / 8 kv heads: B6 at g = 6) and deepseek-v2-236b at depth 7 (MLA, no
+    B6), each step's MoE FFN routing the batch as one token group.
+    ``expect`` is B6's launches, one per GQA attention layer (dense, MoE or
+    shared) and step; the path launches no other kernel. The last step's
+    logits are kept (by a wrapper that only records them) to check that
+    they are finite. Returns B6's launches."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -3631,7 +3801,7 @@ def phase_serve(card, arch="llama3-8b", shape=None, expect=32_768):
     from repro_torch.kernels import sparse_agg, ssm_scan
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer
-    shape = shape or SERVE
+    shape = shape or LLAMA_SERVE
     cfg = configs.get(arch)
     steps = shape["prompt_len"] + shape["gen_len"]
     n_attn = _gqa_layers(cfg, cfg.layer_kinds())
@@ -5111,7 +5281,7 @@ def main():
     del params
     phase_small_lm_reference("zamba2-7b")
     torch.cuda.empty_cache()
-    hybrid_decode = phase_serve(card, "zamba2-7b", HYBRID_SERVE, expect=3_328)
+    hybrid_decode = phase_serve(card, "zamba2-7b", SERVE, expect=3_328)
     phase_decode_profile(card, "zamba2-7b", (("length 256", 256),))
     phase_small_serve_reference("zamba2-7b")
     torch.cuda.empty_cache()
@@ -5127,7 +5297,7 @@ def main():
     lap("xlstm-350m small train", phase_small_lm_reference, "xlstm-350m")
     torch.cuda.empty_cache()
     assert lap("xlstm-350m serve", phase_serve, card, "xlstm-350m",
-               HYBRID_SERVE, expect=0) == 0
+               SERVE, expect=0) == 0
     lap("xlstm-350m decode profile", phase_decode_profile, card,
         "xlstm-350m", (("length 256", 256),))
     lap("xlstm-350m small serve", phase_small_serve_reference, "xlstm-350m")
@@ -5141,11 +5311,42 @@ def main():
     lap("minicpm3-4b small train", phase_small_lm_reference, "minicpm3-4b")
     torch.cuda.empty_cache()
     assert lap("minicpm3-4b serve", phase_serve, card, "minicpm3-4b",
-               HYBRID_SERVE, expect=0) == 0
+               SERVE, expect=0) == 0
     lap("minicpm3-4b decode profile", phase_decode_profile, card,
         "minicpm3-4b", (("length 256", 256),))
     lap("minicpm3-4b small serve", phase_small_serve_reference,
         "minicpm3-4b")
+    torch.cuda.empty_cache()
+    _register_moe_cuts()
+    moe_layer_flash = lap("grok-1-314b attn_moe layer", phase_moe_layer, card)
+    (ds_flash, _, ds_b3), params, cfg = lap(
+        "deepseek-v2-236b-depth2 train", phase_lm_main_path, card,
+        "deepseek-v2-236b-depth2", steps=4, expect=(2, 0, None),
+        use_pallas=False)
+    # the pace window's fit check counts the peak above what is held as the
+    # round's transients: the trainer's own window, freed now, is not one
+    torch.cuda.reset_peak_memory_stats()
+    lap("deepseek-v2-236b-depth2 profile", phase_lm_profile, card, params,
+        cfg, stages=(0, 1))
+    del params
+    torch.cuda.empty_cache()
+    lap("deepseek-v2-236b small train", phase_small_lm_reference,
+        "deepseek-v2-236b")
+    lap("grok-1-314b small train", phase_small_lm_reference, "grok-1-314b")
+    torch.cuda.empty_cache()
+    grok_decode = lap("grok-1-314b-depth4 serve", phase_serve, card,
+                      "grok-1-314b-depth4", SERVE, expect=1_024)
+    lap("grok-1-314b-depth4 decode profile", phase_decode_profile, card,
+        "grok-1-314b-depth4", (("length 256", 256),))
+    lap("grok-1-314b small serve", phase_small_serve_reference,
+        "grok-1-314b")
+    torch.cuda.empty_cache()
+    assert lap("deepseek-v2-236b-depth7 serve", phase_serve, card,
+               "deepseek-v2-236b-depth7", SERVE, expect=0) == 0
+    lap("deepseek-v2-236b-depth7 decode profile", phase_decode_profile, card,
+        "deepseek-v2-236b-depth7", (("length 256", 256),))
+    lap("deepseek-v2-236b small serve", phase_small_serve_reference,
+        "deepseek-v2-236b")
     torch.cuda.empty_cache()
     lap.report()
     dequant = phase_dequant_matmul(logs)
@@ -5181,16 +5382,20 @@ def main():
     flash["launches_by_path"] = {
         "llama3-8b train": llama_flash, "zamba2-7b train": hybrid_flash,
         "llama3-8b resume": resume["llama3-8b resume"][0],
-        "xlstm-350m train": xlstm_flash, "minicpm3-4b train": mla_flash}
+        "xlstm-350m train": xlstm_flash, "minicpm3-4b train": mla_flash,
+        "grok-1-314b attn_moe layer": moe_layer_flash,
+        "deepseek-v2-236b-depth2 train": ds_flash}
     flash["launches"] = sum(flash["launches_by_path"].values())
-    decode["launches"] = llama_decode + hybrid_decode
     decode["launches_by_path"] = {"llama3-8b serve": llama_decode,
-                                  "zamba2-7b serve": hybrid_decode}
+                                  "zamba2-7b serve": hybrid_decode,
+                                  "grok-1-314b-depth4 serve": grok_decode}
+    decode["launches"] = sum(decode["launches_by_path"].values())
     perturb["launches_by_path"] = {"resnet18 sync": cnn_b3,
                                    "llama3-8b train": llama_b3,
                                    "zamba2-7b train": hybrid_b3,
                                    "xlstm-350m train": xlstm_b3,
                                    "minicpm3-4b train": mla_b3,
+                                   "deepseek-v2-236b-depth2 train": ds_b3,
                                    "resnet18 tiered bf16": tiered_b3}
     perturb["launches_by_path"].update(
         {f"resnet18 {name}": b3 for name, (_, b3) in policies.items()})

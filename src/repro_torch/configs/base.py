@@ -6,10 +6,11 @@ reference's, name for name, so a config compares field by field with its
 JAX twin; the registry maps ``--arch <id>`` to its config and ``reduced()``
 derives the small CPU variant of the same family.
 
-The port runs the dense family (GQA and MLA attention), the hybrid Zamba2
-family and the xLSTM family. ``get`` on any other architecture of the
-reference (MoE, VLM, audio) raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+The port runs the dense family (GQA and MLA attention), the MoE family
+(grok-1, deepseek-v2), the hybrid Zamba2 family and the xLSTM family.
+``get`` on any other architecture of the reference (the VLM and audio
+frontends) raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 from __future__ import annotations
 
@@ -209,9 +210,6 @@ _REGISTRY: dict = {}
 # architectures of the reference that the port does not run yet, and the
 # ROADMAP item that brings each
 _UNPORTED = {
-    "deepseek-v2-236b": "MoE (ROADMAP A15: models/moe.py; its MLA attention "
-                        "is ported)",
-    "grok-1-314b": "MoE (ROADMAP A15: models/moe.py)",
     "internvl2-2b": "VLM frontend (ROADMAP A15: frontends)",
     "hubert-xlarge": "audio encoder frontend (ROADMAP A15: frontends)",
 }
@@ -244,5 +242,6 @@ def _load_all():
         return
     _LOADED = True
     from repro_torch.configs import (  # noqa: F401  (registration)
-        deepseek_coder_33b, llama3_8b, minicpm3_4b, qwen2_72b, xlstm_350m,
+        deepseek_coder_33b, deepseek_v2_236b, grok1_314b, llama3_8b,
+        minicpm3_4b, qwen2_72b, resnet_cifar, vgg_cifar, xlstm_350m,
         zamba2_7b)

@@ -20,7 +20,7 @@ runs under ``no_grad`` with the active weights, so only the occurrences in
 the active block give them a gradient, as the reference's boundary does.
 
 ``make_fed_round_step`` is one federated round with pods as cross-silo
-clients: each pod trains its own clone of the active tree for K local SGD
+clients: each pod trains its own copy of the active tree for K local SGD
 steps, and the Eq. 1 fold averages the pods leaf by leaf in f32 and casts
 back to the param dtype. The reference's vmap over pods is a loop here.
 
@@ -273,8 +273,8 @@ def make_fed_round_step(model: LM, plan: StagePlan, local_opt: Optimizer, *,
     """One federated round (Eq. 1) with pods as cross-silo clients.
 
     ``round_step(active, frozen, batch, weights)``: batch leaves are
-    [num_pods, local_steps, ...]; weights [num_pods]. Each pod trains a
-    clone of ``active`` for ``local_steps`` clipped SGD steps; the new
+    [num_pods, local_steps, ...]; weights [num_pods]. Each pod trains from
+    ``active`` for ``local_steps`` clipped SGD steps; the new
     active tree is ``sum_p w_p * pod_p`` in f32, cast back per leaf, with
     w = weights / sum(weights). Returns (new_active, {"loss": sum_p w_p *
     mean local loss of pod p})."""
@@ -286,7 +286,11 @@ def make_fed_round_step(model: LM, plan: StagePlan, local_opt: Optimizer, *,
         start = tree_leaves(active)
         pods, losses = [], []
         for pod in range(num_pods):
-            leaves = [leaf.detach().clone() for leaf in start]
+            # detached views, not copies: a step writes no leaf in place
+            # (its update makes new tensors), so the pods share the start
+            # and a full-width block is not held twice (deepseek-v2's MoE
+            # block: 9 GB)
+            leaves = [leaf.detach() for leaf in start]
             opt_state, step_losses = None, []
             for s in range(local_steps):
                 b = {k: v[pod, s] for k, v in batch.items()}

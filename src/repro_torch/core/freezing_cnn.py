@@ -14,7 +14,9 @@ import torch
 
 from repro_torch.core import output_module as op_mod
 from repro_torch.models.cnn import CNN, softmax_xent
-from repro_torch.models.module import ParamFactory, Params
+from repro_torch.models.module import (ParamFactory, Params, tree_leaves,
+                                       tree_map, tree_unflatten)
+from repro_torch.optim import Optimizer, apply_updates, clip_by_global_norm
 
 
 def split_cnn_params(model: CNN, params: Params, stage: int
@@ -127,3 +129,27 @@ def cnn_cached_stage_loss_fn(model: CNN, stage: int, *, op_kind: str = "conv"):
         return softmax_xent(logits, batch["y"]), new_state
 
     return loss_fn
+
+
+def make_cnn_stage_step(model: CNN, stage: int, optimizer: Optimizer, *,
+                        op_kind: str = "conv", clip_norm: float = 10.0):
+    """One local step of stage ``stage``: ``step(active, frozen, bn_state,
+    opt_state, batch) -> (active, bn_state, opt_state, loss)``, the loss's
+    gradient clipped to ``clip_norm`` and applied by ``optimizer``. A leaf
+    the loss never reads gets a zero gradient, as under ``jax.grad``."""
+    loss_fn = cnn_stage_loss_fn(model, stage, op_kind=op_kind)
+
+    def step(active, frozen, bn_state, opt_state, batch):
+        req = tree_map(lambda x: x.detach().requires_grad_(True), active)
+        loss, new_bn = loss_fn(req, frozen, bn_state, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(req), allow_unused=True,
+                                    materialize_grads=True)
+        with torch.no_grad():
+            grads, _ = clip_by_global_norm(tree_unflatten(req, grads),
+                                           clip_norm)
+            ups, opt_state = optimizer.update(grads, opt_state, active)
+            active = apply_updates(tree_map(torch.Tensor.detach, active), ups)
+        return (active, tree_map(torch.Tensor.detach, new_bn), opt_state,
+                loss.detach())
+
+    return step

@@ -40,9 +40,20 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.module import tree_leaves
+from repro_torch.models.module import tree_leaves, tree_map
+from repro_torch.optim import global_norm
 
 Norms = Tuple[Optional[float], Optional[float]]
+
+
+def tree_sub(a, b):
+    """Leafwise a - b in float32."""
+    return tree_map(lambda x, y: x.float() - y.float(), a, b)
+
+
+def tree_norm(t) -> float:
+    """The global L2 norm of a tree, as a Python float."""
+    return float(global_norm(t))
 
 
 def _flatten(leaves) -> np.ndarray:

@@ -87,3 +87,22 @@ def _one_level(W: np.ndarray, resolution: float, rng) -> tuple:
         if not moved:
             break
     return list(labels), improved_any
+
+
+def modularity(W: np.ndarray, communities: List[List[int]],
+               resolution: float = 1.0) -> float:
+    """Newman modularity of a partition of the graph W, in float64 (the
+    diagonal and negative weights dropped, as ``louvain`` drops them)."""
+    W = np.asarray(W, np.float64).copy()
+    np.fill_diagonal(W, 0.0)
+    W = np.maximum(W, 0.0)
+    deg = W.sum(axis=1)
+    two_m = deg.sum()
+    if two_m <= 0:
+        return 0.0
+    q = 0.0
+    for comm in communities:
+        idx = np.asarray(comm)
+        q += W[np.ix_(idx, idx)].sum() / two_m
+        q -= resolution * (deg[idx].sum() / two_m) ** 2
+    return q

@@ -14,7 +14,7 @@ coverage maximizes Div(S, t); the bandit maximizes sum Util.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -98,3 +98,14 @@ class ParticipantSelector:
                 order = rng.permutation(len(pools)) if pools else order
             ci += 1
         return chosen
+
+    def data_diversity(self, selected: Sequence[int], similarity: np.ndarray
+                       ) -> float:
+        """Div(S, t) = 1 / sum_{i != j in S} Omega_ij (paper §IV-C3); inf
+        for fewer than two clients."""
+        idx = np.asarray(list(selected))
+        if idx.size < 2:
+            return float("inf")
+        sub = similarity[np.ix_(idx, idx)]
+        total = sub.sum() - np.trace(sub)
+        return 1.0 / max(total, 1e-9)

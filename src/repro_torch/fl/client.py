@@ -9,12 +9,14 @@ minibatches to the device.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.selector.selection import ClientInfo
 from repro_torch.core.selector.vectorized import ClientPopulation
+from repro_torch.models.module import tree_leaves
 
 # Paper memory scenarios: available RAM (GiB) under high / low contention
 HIGH_CONTENTION_GB = (0.5, 0.75, 1.0, 1.5, 2.0)
@@ -51,6 +53,29 @@ class SimClient:
 
     def round_seed(self, round_idx: int) -> int:
         return self.seed * 99991 + round_idx
+
+    def batches(self, batch_size: int, epochs: int, seed: int):
+        for idx in batch_index_plan(self.num_samples, batch_size, epochs,
+                                    seed):
+            yield {k: v[idx] for k, v in self.data.items()}
+
+    def local_train(self, step_fn: Callable, active, frozen, bn_state,
+                    opt_state, *, batch_size: int, epochs: int,
+                    round_idx: int):
+        """Runs a stage step (``core/freezing_cnn.make_cnn_stage_step``)
+        over the local minibatches, each moved to the device of ``active``.
+
+        Returns (active, bn_state, mean_loss, num_batches)."""
+        dev = next(iter(tree_leaves(active))).device
+        losses = []
+        for batch in self.batches(batch_size, epochs,
+                                  self.round_seed(round_idx)):
+            tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            active, bn_state, opt_state, loss = step_fn(
+                active, frozen, bn_state, opt_state, tb)
+            losses.append(float(loss))
+        mean_loss = float(np.mean(losses)) if losses else 0.0
+        return active, bn_state, mean_loss, len(losses)
 
     def info(self) -> ClientInfo:
         return ClientInfo(self.client_id, self.memory_bytes, self.capability,

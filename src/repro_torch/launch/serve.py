@@ -3,13 +3,15 @@ greedy decode over a preallocated KV cache, prefill-free.
 
 Every request of the batch steps its prompt one token at a time through
 ``LM.decode_step``, then decodes greedily. On the card every GQA attention
-of every step runs the flash-decode kernel (``kernels/csrc/
-decode_attention.cu``) over the whole cache with ``length = pos + 1``;
-MLA (MiniCPM3) decodes matrix-absorbed over its latent cache in plain
-einsums, as the reference does; a hybrid model's Mamba2 layers and an
-xLSTM's mLSTM and sLSTM layers step their O(1) recurrences, which need no
-kernel. The generated tokens stay on the device until the loop ends and
-cross to the host once; the clock stops after ``torch.cuda.synchronize()``.
+(of a dense or a MoE layer) of every step runs the flash-decode kernel
+(``kernels/csrc/decode_attention.cu``) over the whole cache with ``length
+= pos + 1``; MLA (MiniCPM3, deepseek-v2) decodes matrix-absorbed over its
+latent cache in plain einsums, as the reference does; a MoE layer's FFN
+routes the batch as one token group at twice the capacity factor; a
+hybrid model's Mamba2 layers and an xLSTM's mLSTM and sLSTM layers step
+their O(1) recurrences, which need no kernel. The generated tokens stay
+on the device until the loop ends and cross to the host once; the clock
+stops after ``torch.cuda.synchronize()``.
 
 Examples (one H100, full width):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --full

@@ -1,23 +1,25 @@
 """End-to-end progressive federated LM training (counterpart of
 ``repro/launch/train.py``).
 
-Runs SmartFreeze on a dense (GQA or MLA: MiniCPM3), hybrid (Zamba2) or
-xLSTM ``--arch``: per stage, build the (frozen, active) split and output
-module, run federated rounds (pods are the cross-silo clients) through
-``fl/sim.py``'s ``FederatedLoop``, feed the pace controller the
-aggregated active block each round, freeze on convergence, merge, grow,
-repeat.
+Runs SmartFreeze on a dense (GQA or MLA: MiniCPM3), MoE (grok-1 with GQA,
+deepseek-v2 with MLA; the MoE FFN's load-balancing aux loss enters every
+stage loss at 0.01), hybrid (Zamba2) or xLSTM ``--arch``: per stage,
+build the (frozen, active) split and output module, run federated rounds
+(pods are the cross-silo clients) through ``fl/sim.py``'s
+``FederatedLoop``, feed the pace controller the aggregated active block
+each round, freeze on convergence, merge, grow, repeat.
 
 On the card every full-sequence GQA attention runs the flash kernel
-(``kernels/csrc/flash_attention.cu``): the dense GQA layers, the hybrid
-family's shared attention, and the output module's proxy layers, which
-are GQA with the arch's head geometry for every family (xLSTM's 4 heads of
-256, MiniCPM3's 40 of 64). Every Mamba2 layer's SSD scan runs the scan
-kernel (``kernels/csrc/ssm_scan.cu``). MLA, mLSTM and sLSTM layers call no
-kernel, as in the reference. ``use_pallas`` picks the CPU attention path
-the reference's ``--use-pallas`` picks, and raises ``SystemExit`` for an
-MLA arch, as the reference does. The client mesh (``mesh_clients > 1``;
-ROADMAP A14) is not ported and raises ``TypeError``.
+(``kernels/csrc/flash_attention.cu``): the dense and MoE GQA layers, the
+hybrid family's shared attention, and the output module's proxy layers,
+which are GQA with the arch's head geometry for every family (xLSTM's 4
+heads of 256, MiniCPM3's 40 of 64). Every Mamba2 layer's SSD scan runs
+the scan kernel (``kernels/csrc/ssm_scan.cu``). MLA, mLSTM and sLSTM
+layers and the MoE FFN call no kernel, as in the reference.
+``use_pallas`` picks the CPU attention path the reference's
+``--use-pallas`` picks, and raises ``SystemExit`` for an MLA arch, as the
+reference does. The client mesh (``mesh_clients > 1``; ROADMAP A14) is not
+ported and raises ``TypeError``.
 
 Checkpoints (``checkpoint/ckpt.py``, the reference's on-disk format):
 with ``ckpt_dir``, every ``ckpt_every`` rounds the merged params, the

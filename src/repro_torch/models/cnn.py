@@ -210,6 +210,9 @@ class CNN:
         logits, new_state = self.apply(params, state, batch["x"], train=train)
         return softmax_xent(logits, batch["y"]), new_state
 
+    def stage_output_channels(self, stage: int) -> int:
+        return self.cfg.stage_channels[stage]
+
 
 def build_cnn(name: str, num_classes: int = 10, device="cuda") -> CNN:
     cfg = dataclasses.replace(CNN_REGISTRY[name], num_classes=num_classes)

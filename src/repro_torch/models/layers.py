@@ -72,7 +72,11 @@ def norm(p: Params, x: torch.Tensor, kind: str, eps: float = 1e-5
 
 def activation(name: str):
     """``jax.nn``'s activations; its gelu is the tanh approximation
-    (``gelu``)."""
+    (``gelu``). Its silu is ``F.silu``, one rounding, which the dense MLPs
+    take. The layers whose bf16 output left the reference's own bf16-f32
+    spread with it take ``silu``, in the reference's roundings, instead:
+    the Mamba2 and xLSTM blocks' convolutions and gates (``models/ssm.py``)
+    and the MoE FFNs' experts and shared experts (``models/moe.py``)."""
     return {"silu": F.silu, "relu": F.relu, "gelu": gelu}[name]
 
 

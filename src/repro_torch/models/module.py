@@ -73,6 +73,18 @@ def param_count(tree) -> int:
     return sum(int(leaf.numel()) for leaf in tree_leaves(tree))
 
 
+def param_bytes(tree) -> int:
+    return sum(int(leaf.numel()) * leaf.element_size()
+               for leaf in tree_leaves(tree))
+
+
+def cast_tree(tree, dtype: torch.dtype):
+    """Cast the floating leaves to ``dtype``; other leaves stay as they
+    are."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    tree)
+
+
 class ParamFactory:
     """Creates parameters on ``device`` in ``dtype`` from ``generator``.
 

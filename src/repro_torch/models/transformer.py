@@ -1,8 +1,9 @@
 """The LM: embed -> segments of stacked layers -> head (counterpart of
 ``repro/models/transformer.py``), for the dense family (GQA or MLA
-attention), the hybrid Zamba2 family (Mamba2 layers and weight-tied shared
-attention) and the xLSTM family (mLSTM layers, every ``slstm_every``-th an
-sLSTM).
+attention), the MoE family (attention with a mixture-of-experts FFN,
+``models/moe.py``, after ``first_dense_layers`` dense layers), the hybrid
+Zamba2 family (Mamba2 layers and weight-tied shared attention) and the
+xLSTM family (mLSTM layers, every ``slstm_every``-th an sLSTM).
 
 ``LM`` exposes the decomposed interface SmartFreeze's progressive trainer
 needs: ``embed`` / ``run_layers(lo, hi)`` / ``head``. Layers are stored
@@ -17,7 +18,7 @@ segment (stacked [n_layers, ...] for a segment of layers, one KV cache per
 shared-attention occurrence) and each step writes its k/v rows, MLA
 latents and recurrent states into them in place, returning the same dict.
 
-The MoE layer kind and the modality frontends wait for ROADMAP A15.
+The modality frontends (VLM, audio) wait for ROADMAP A15.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import torch.utils.checkpoint as ckpt
 
 from repro_torch._device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (activation, dense, dense_init, norm,
                                        norm_init)
@@ -41,7 +43,7 @@ def _dt(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
-ATTN_KINDS = ("attn_mlp", "shared_attn")
+ATTN_KINDS = ("attn_mlp", "attn_moe", "shared_attn")
 # the recurrent kinds: (init, full-sequence forward, state init, one step)
 RECURRENT = {
     "mamba2": (ssm_mod.mamba2_init, ssm_mod.mamba2_forward,
@@ -54,9 +56,6 @@ RECURRENT = {
 
 
 def _check_kind(kind: str) -> None:
-    if kind == "attn_moe":
-        raise NotImplementedError("layer kind 'attn_moe' is not ported "
-                                  "(ROADMAP A15)")
     if kind not in ATTN_KINDS and kind not in RECURRENT:
         raise ValueError(kind)
 
@@ -77,16 +76,20 @@ def layer_init(fac: ParamFactory, cfg, kind: str) -> Params:
     if kind in RECURRENT:
         return {"ln": norm_init(fac, cfg.d_model, cfg.norm),
                 "mix": RECURRENT[kind][0](fac, cfg)}
-    return {"ln1": norm_init(fac, cfg.d_model, cfg.norm),
-            "attn": attn.attn_init(fac, cfg),
-            "ln2": norm_init(fac, cfg.d_model, cfg.norm),
-            "mlp": mlp_init(fac, cfg, cfg.d_ff)}
+    p = {"ln1": norm_init(fac, cfg.d_model, cfg.norm),
+         "attn": attn.attn_init(fac, cfg),
+         "ln2": norm_init(fac, cfg.d_model, cfg.norm)}
+    if kind == "attn_moe":
+        p["moe"] = moe_mod.moe_init(fac, cfg)
+    else:
+        p["mlp"] = mlp_init(fac, cfg, cfg.d_ff)
+    return p
 
 
 def layer_apply(p: Params, x: torch.Tensor, cfg, kind: str, *,
                 causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence layer. Returns (y, aux_loss); the ported kinds' aux
-    loss is 0."""
+    """Full-sequence layer. Returns (y, aux_loss); the aux loss is the MoE
+    FFN's load-balancing loss for ``attn_moe``, 0 for every other kind."""
     _check_kind(kind)
     aux = torch.zeros((), device=x.device)
     if kind in RECURRENT:
@@ -94,7 +97,11 @@ def layer_apply(p: Params, x: torch.Tensor, cfg, kind: str, *,
             p["mix"], norm(p["ln"], x, cfg.norm, cfg.norm_eps), cfg), aux
     h = x + attn.attn_forward(p["attn"], norm(p["ln1"], x, cfg.norm,
                                               cfg.norm_eps), cfg, causal=causal)
-    y = mlp_apply(p["mlp"], norm(p["ln2"], h, cfg.norm, cfg.norm_eps), cfg)
+    hn = norm(p["ln2"], h, cfg.norm, cfg.norm_eps)
+    if kind == "attn_moe":
+        y, aux = moe_mod.moe_forward(p["moe"], hn, cfg)
+    else:
+        y = mlp_apply(p["mlp"], hn, cfg)
     return h + y, aux
 
 
@@ -119,7 +126,9 @@ def layer_decode(p: Params, x: torch.Tensor, cache: Params, pos: int, cfg,
                                                 cfg.norm_eps), cache, pos, cfg,
                                 steps=steps)
     h = x + a
-    y = mlp_apply(p["mlp"], norm(p["ln2"], h, cfg.norm, cfg.norm_eps), cfg)
+    hn = norm(p["ln2"], h, cfg.norm, cfg.norm_eps)
+    y = (moe_mod.moe_decode(p["moe"], hn, cfg) if kind == "attn_moe"
+         else mlp_apply(p["mlp"], hn, cfg))
     return h + y, cache
 
 
@@ -139,7 +148,7 @@ class LM:
     device: torch.device = "cuda"
 
     def __post_init__(self):
-        if self.cfg.family not in ("dense", "hybrid", "ssm"):
+        if self.cfg.family not in ("dense", "moe", "hybrid", "ssm"):
             raise NotImplementedError(
                 f"{self.cfg.name}: the {self.cfg.family} family is not "
                 "ported (ROADMAP A15)")

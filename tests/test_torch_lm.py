@@ -121,7 +121,8 @@ def _batch(cfg, b=2, s=24, seed=0):
 
 @pytest.mark.parametrize("name", ["llama3-8b", "qwen2-72b",
                                   "deepseek-coder-33b", "zamba2-7b",
-                                  "xlstm-350m", "minicpm3-4b"])
+                                  "xlstm-350m", "minicpm3-4b",
+                                  "deepseek-v2-236b", "grok-1-314b"])
 def test_configs_match_reference(name):
     j, t = jconfigs.get(name), tconfigs.get(name)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
@@ -129,10 +130,10 @@ def test_configs_match_reference(name):
     assert t.block_boundaries() == j.block_boundaries()
     assert dataclasses.asdict(t.reduced(**SMALL)) == \
         dataclasses.asdict(j.reduced(**SMALL))
+    assert dataclasses.asdict(t.reduced()) == dataclasses.asdict(j.reduced())
 
 
-@pytest.mark.parametrize("name", ["deepseek-v2-236b", "grok-1-314b",
-                                  "internvl2-2b", "hubert-xlarge"])
+@pytest.mark.parametrize("name", ["internvl2-2b", "hubert-xlarge"])
 def test_unported_architectures_raise(name):
     assert name in jconfigs.names()
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
@@ -277,6 +278,32 @@ def test_lm_forward_and_loss_match_reference(dtype):
                                float(jm.loss(params, jb)), **tol)
     np.testing.assert_allclose(float(ttr.token_loss(tlog, tb, tcfg)),
                                float(jtr.token_loss(jlog, jb, jcfg)), **tol)
+
+
+def test_lm_forward_bf16_matches_reference_op_by_op():
+    """bf16 logits through the whole model against the reference run op by
+    op (``jax.disable_jit``; compiled, XLA keeps bf16 intermediates in f32
+    inside its fusions), held by the reference's own spread rule: no
+    farther from the reference's bf16 logits than those lie from its f32
+    logits on the same params (0.054 at this size; the port lies 0.039
+    away, where it lies 0.047 from the compiled reference), and within
+    twice that of the f32 logits. The op that parts the packages is the
+    MLP's ``activation("silu")`` (``F.silu``, one rounding, as
+    ``tests/test_torch_mla.py`` found): with ``layers.silu`` in its place
+    the gap is 0.023, in a ninth of the logits, from the matrix products'
+    summation order."""
+    jcfg, tcfg = _cfgs()
+    jm, params, tm, tparams = _model_and_params(jcfg, tcfg)
+    jm32 = jtr.build(dataclasses.replace(jcfg, **F32))
+    params32 = jax.tree.map(lambda a: a.astype(jnp.float32), params)
+    jb, tb = _batch(jcfg)
+    with jax.disable_jit():
+        ref16 = _np(jm.forward(params, jb)[0])
+    ref32 = _np(jax.jit(jm32.forward)(params32, jb)[0])
+    got = _tnp(tm.forward(tparams, tb)[0])
+    spread = np.abs(ref16 - ref32).max()
+    assert np.abs(got - ref16).max() <= spread
+    assert np.abs(got - ref32).max() <= 2 * spread
 
 
 def test_chunked_ce_loss_matches_reference_with_masked_labels():

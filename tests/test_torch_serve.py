@@ -137,9 +137,34 @@ def test_gqa_decode_matches_reference(dtype, pos):
 
 
 def test_unported_layer_kinds_raise():
-    _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="A15"):
-        ttr.layer_decode({}, torch.zeros(1, 1, 64), {}, 0, tcfg, "attn_moe")
+    """The MoE kind ``attn_moe``, which raised here until the MoE slice
+    ported it, decodes one token as the reference's ``layer_decode`` does
+    (grok-1 reduced, f32: its GQA attention over a cache with 5 rows
+    written, then the MoE FFN over the batch as one token group, at twice
+    the capacity factor); an unknown kind still raises."""
+    jcfg, tcfg = _cfgs("grok-1-314b", **F32)
+    _, params, _, _ = _model_and_params(jcfg, tcfg)
+    lp = jax.tree.map(lambda a: a[0], params["segments"]["0"])
+    rng = np.random.RandomState(4)
+    B, S, pos = 4, 12, 5
+    x = rng.randn(B, 1, 64).astype(np.float32)
+    kv = {n: rng.randn(B, S, tcfg.num_kv_heads, 16).astype(np.float32)
+          for n in ("k", "v")}
+    for a in kv.values():
+        a[:, pos:] = 0.0
+    want, jcache = jtr.layer_decode(
+        lp, jnp.asarray(x), {n: jnp.asarray(a) for n, a in kv.items()},
+        jnp.int32(pos), jcfg, "attn_moe")
+    tcache = {n: torch.as_tensor(a) for n, a in kv.items()}
+    got, out_cache = ttr.layer_decode(to_torch(lp), torch.as_tensor(x), tcache,
+                                      pos, tcfg, "attn_moe")
+    assert out_cache is tcache
+    np.testing.assert_allclose(_tnp(got), _np(want), **F32_TOL)
+    for n in ("k", "v"):
+        np.testing.assert_allclose(_tnp(out_cache[n]), _np(jcache[n]),
+                                   **F32_TOL)
+    with pytest.raises(ValueError):
+        ttr.layer_decode({}, torch.zeros(1, 1, 64), {}, 0, tcfg, "attn_vit")
 
 
 # --------------------------------------------------------------------------

@@ -185,9 +185,9 @@ def test_unported_policies_and_run_arguments_raise():
 def test_port_imports_without_jax_or_reference():
     """Every module of the port imports with JAX, the JAX package and
     ml_dtypes blocked, the LM, serving, hybrid, B3, tier, policy, baseline,
-    fault, checkpoint and population slices' modules among them, and registering the
-    ported configs pulls in nothing of them; chip_smoke.py imports none of
-    them."""
+    fault, checkpoint, population and MoE slices' modules among them, and
+    registering the ported configs pulls in nothing of them; chip_smoke.py
+    imports none of them."""
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -213,11 +213,16 @@ def test_port_imports_without_jax_or_reference():
             "'repro_torch.core.selector.similarity', "
             "'repro_torch.core.selector.rlcd', 'repro_torch.core.time_model', "
             "'repro_torch.fl.client', 'repro_torch.configs.xlstm_350m', "
-            "'repro_torch.configs.minicpm3_4b'):\n"
+            "'repro_torch.configs.minicpm3_4b', 'repro_torch.models.moe', "
+            "'repro_torch.configs.grok1_314b', "
+            "'repro_torch.configs.deepseek_v2_236b', "
+            "'repro_torch.configs.resnet_cifar', "
+            "'repro_torch.configs.vgg_cifar'):\n"
             "    assert n in names, n\n"
             "from repro_torch import configs\n"
-            "assert configs.names() == ['deepseek-coder-33b', 'llama3-8b', "
-            "'minicpm3-4b', 'qwen2-72b', 'xlstm-350m', 'zamba2-7b']\n"
+            "assert configs.names() == ['deepseek-coder-33b', "
+            "'deepseek-v2-236b', 'grok-1-314b', 'llama3-8b', 'minicpm3-4b', "
+            "'qwen2-72b', 'xlstm-350m', 'zamba2-7b']\n"
             "assert not any(k == 'jax' or k.startswith('jax.') or k == 'repro' "
             "or k.startswith('repro.') for k, v in sys.modules.items() "
             "if v is not None)\n")
