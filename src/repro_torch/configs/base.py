@@ -6,11 +6,10 @@ reference's, name for name, so a config compares field by field with its
 JAX twin; the registry maps ``--arch <id>`` to its config and ``reduced()``
 derives the small CPU variant of the same family.
 
-The port runs the dense family (GQA and MLA attention), the MoE family
-(grok-1, deepseek-v2), the hybrid Zamba2 family and the xLSTM family.
-``get`` on any other architecture of the reference (the VLM and audio
-frontends) raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+The port runs every architecture of the reference: the dense family (GQA
+and MLA attention), the MoE family (grok-1, deepseek-v2), the hybrid
+Zamba2 family, the xLSTM family, the InternVL2 vision stub and the HuBERT
+audio encoder.
 """
 from __future__ import annotations
 
@@ -166,6 +165,18 @@ class ArchConfig:
             bounds.append(bounds[-1] + base + (1 if i < rem else 0))
         return tuple(bounds)
 
+    def param_count(self) -> int:
+        """Analytic parameter count (the LM memory model's, from the
+        params built on the meta device)."""
+        from repro_torch.core.memory_model import arch_param_count
+
+        return arch_param_count(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.core.memory_model import arch_active_param_count
+
+        return arch_active_param_count(self)
+
     def reduced(self, **overrides) -> "ArchConfig":
         """A tiny same-family config for CPU tests."""
         small = dict(
@@ -207,13 +218,6 @@ class ArchConfig:
 
 _REGISTRY: dict = {}
 
-# architectures of the reference that the port does not run yet, and the
-# ROADMAP item that brings each
-_UNPORTED = {
-    "internvl2-2b": "VLM frontend (ROADMAP A15: frontends)",
-    "hubert-xlarge": "audio encoder frontend (ROADMAP A15: frontends)",
-}
-
 
 def register(cfg: ArchConfig) -> ArchConfig:
     _REGISTRY[cfg.name] = cfg
@@ -222,9 +226,6 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 def get(name: str) -> ArchConfig:
     _load_all()
-    if name in _UNPORTED:
-        raise NotImplementedError(f"architecture {name!r} is not ported yet: "
-                                  f"{_UNPORTED[name]}")
     return _REGISTRY[name]
 
 
@@ -242,6 +243,6 @@ def _load_all():
         return
     _LOADED = True
     from repro_torch.configs import (  # noqa: F401  (registration)
-        deepseek_coder_33b, deepseek_v2_236b, grok1_314b, llama3_8b,
-        minicpm3_4b, qwen2_72b, resnet_cifar, vgg_cifar, xlstm_350m,
-        zamba2_7b)
+        deepseek_coder_33b, deepseek_v2_236b, grok1_314b, hubert_xlarge,
+        internvl2_2b, llama3_8b, minicpm3_4b, qwen2_72b, resnet_cifar,
+        vgg_cifar, xlstm_350m, zamba2_7b)

@@ -10,9 +10,14 @@ The reference's ``stop_gradient`` memory boundary becomes a prefix run
 under ``torch.no_grad()`` (embedding and frozen layers), whose output
 enters the active suffix detached: eager PyTorch would otherwise keep the
 graph of every frozen layer. As in the reference, the boundary also cuts
-the embedding off from the loss, so at stage 0 the embedding, though in
-the active tree, gets no gradient; the reference's zero gradient leaves it
-unchanged bit for bit, and the port skips its update.
+the embedding off from the loss, so at stage 0 the embedding and a
+modality frontend, though in the active tree, get no gradient: torch
+gives them ``None`` where JAX gives zeros. Where a zero gradient moves
+nothing (SGD, momentum: the optimizer's ``zero_grad_noop``), a round
+skips their update and leaves them unchanged bit for bit, as the
+reference does; under AdamW, whose weight decay moves a leaf whatever its
+gradient, they take zeros, which also add nothing to the global-norm
+clip.
 
 Zamba2's weight-tied shared-attention sets are in the active tree at
 every stage (the tying spans blocks). A shared layer in the frozen prefix
@@ -22,14 +27,17 @@ the active block give them a gradient, as the reference's boundary does.
 ``make_fed_round_step`` is one federated round with pods as cross-silo
 clients: each pod trains its own copy of the active tree for K local SGD
 steps, and the Eq. 1 fold averages the pods leaf by leaf in f32 and casts
-back to the param dtype. The reference's vmap over pods is a loop here.
+back to the param dtype. The reference's vmap over pods is a loop here
+(``fed_round``, which the cached round of ``fl/engine.py`` shares).
 
-``cached_stage_loss_fn``, ``make_train_step`` and ``split_stage_axes``
-are not ported (ROADMAP A15).
+``cached_stage_loss_fn`` is the stage loss over cached prefix features
+(``fl/engine.py:make_lm_cached_fed_round_step``), and ``make_train_step``
+a centralized stage step over a ``TrainState``. ``split_stage_axes`` goes
+with the dry-run tools (ROADMAP A16).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint as ckpt
@@ -86,6 +94,9 @@ def split_stage_params(model: LM, params: Params, plan: StagePlan
     frozen: Params = {"runs": {}}
     active: Params = {"runs": {}}
     (active if plan.train_embed else frozen)["embed"] = params["embed"]
+    if "frontend" in params:
+        (active if plan.train_embed else frozen)["frontend"] = \
+            params["frontend"]
     for ri, (region, kind, si, a, b) in enumerate(plan.runs):
         if kind == "shared_attn":
             continue  # the tied sets, below
@@ -111,6 +122,8 @@ def merge_stage_params(model: LM, params: Params, plan: StagePlan,
     new = tree_map(lambda x: x, params)
     if plan.train_embed:
         new["embed"] = active["embed"]
+        if "frontend" in active:
+            new["frontend"] = active["frontend"]
     with torch.no_grad():
         for ri, (region, kind, si, a, b) in enumerate(plan.runs):
             if region != "active" or kind == "shared_attn":
@@ -221,10 +234,30 @@ def stage_forward(model: LM, frozen: Params, active: Params, batch: dict,
                                        remat=remat)
 
 
+def stage_logits(model: LM, frozen: Params, active: Params, batch: dict,
+                 plan: StagePlan, *, remat: bool = True):
+    """Full [B, S, V] logits and the aux loss (tests and small models)."""
+    h, head_w, aux = stage_forward(model, frozen, active, batch, plan,
+                                   remat=remat)
+    return h @ head_w.to(h.dtype), aux
+
+
 def stage_loss_fn(model: LM, plan: StagePlan, *, remat: bool = True):
     def loss_fn(active: Params, frozen: Params, batch: dict) -> torch.Tensor:
         h, head_w, aux = stage_forward(model, frozen, active, batch, plan,
                                        remat=remat)
+        return chunked_ce_loss(h, head_w, batch, model.cfg) + 0.01 * aux
+
+    return loss_fn
+
+
+def cached_stage_loss_fn(model: LM, plan: StagePlan, *, remat: bool = True):
+    """Stage loss over cached prefix features: the batch carries ``h0``
+    (the prefix's output) and ``aux0`` (its aux loss, a constant) beside
+    the labels; no frozen tree is read."""
+    def loss_fn(active: Params, batch: dict) -> torch.Tensor:
+        h, head_w, aux = stage_forward_from_features(
+            model, active, batch["h0"], batch["aux0"], plan, remat=remat)
         return chunked_ce_loss(h, head_w, batch, model.cfg) + 0.01 * aux
 
     return loss_fn
@@ -242,14 +275,25 @@ def init_stage_active(model: LM, params: Params, plan: StagePlan,
     return frozen, active
 
 
-def _local_step(loss_fn, leaves, template, frozen, batch, opt: Optimizer,
-                opt_state, clip_norm: float):
-    """One local SGD step on a pod's leaves. Leaves the loss does not reach
-    keep their values (the reference's update for them is exactly zero)."""
+def _grads(loss_fn, leaves, template, *args):
+    """(loss, gradients of the loss at ``leaves``); ``None`` where the loss
+    does not reach a leaf."""
     for leaf in leaves:
         leaf.requires_grad_(True)
-    loss = loss_fn(tree_unflatten(template, leaves), frozen, batch)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    loss = loss_fn(tree_unflatten(template, leaves), *args)
+    return loss, list(torch.autograd.grad(loss, leaves, allow_unused=True))
+
+
+def _local_step(loss_fn, leaves, template, args, opt: Optimizer,
+                opt_state, clip_norm: float):
+    """One local step on a pod's leaves (``loss_fn(tree, *args)``). A leaf
+    the loss does not reach keeps its value when the optimizer's update of
+    a zero gradient is zero (``opt.zero_grad_noop``: the reference's update
+    is exactly zero), and takes a zero gradient otherwise."""
+    loss, grads = _grads(loss_fn, leaves, template, *args)
+    if not opt.zero_grad_noop:
+        grads = [torch.zeros_like(leaf) if g is None else g
+                 for g, leaf in zip(grads, leaves)]
     live = [i for i, g in enumerate(grads) if g is not None]
     # zero-padded keys keep tree_leaves order = the reference's leaf order
     g_tree = {f"{j:06d}": grads[i] for j, i in enumerate(live)}
@@ -267,6 +311,44 @@ def _local_step(loss_fn, leaves, template, frozen, batch, opt: Optimizer,
     return out, opt_state, loss.detach()
 
 
+def fed_round(loss_fn, active: Params, args: tuple, batch: dict,
+              weights: torch.Tensor, local_opt: Optimizer, *, num_pods: int,
+              local_steps: int, clip_norm: float):
+    """The pod loop of one federated round: each pod trains from ``active``
+    for ``local_steps`` clipped steps of ``loss_fn(tree, *args, b)`` on its
+    minibatches ``b = batch[k][pod, step]``, and the Eq. 1 fold averages
+    the pods leaf by leaf in f32 (w = weights / sum(weights)) and casts
+    back. Returns (new_active, {"loss": sum_p w_p * mean loss of pod p})."""
+    w = (weights / torch.sum(weights)).float()
+    start = tree_leaves(active)
+    pods, losses = [], []
+    for pod in range(num_pods):
+        # detached views, not copies: a step writes no leaf in place (its
+        # update makes new tensors), so the pods share the start and a
+        # full-width block is not held twice (deepseek-v2's MoE block:
+        # 9 GB)
+        leaves = [leaf.detach() for leaf in start]
+        opt_state, step_losses = None, []
+        for s in range(local_steps):
+            b = {k: v[pod, s] for k, v in batch.items()}
+            leaves, opt_state, loss = _local_step(
+                loss_fn, leaves, active, args + (b,), local_opt, opt_state,
+                clip_norm)
+            step_losses.append(loss)
+        pods.append(leaves)
+        losses.append(torch.stack(step_losses).mean())
+    new = []
+    for i, leaf in enumerate(start):
+        acc = w[0] * pods[0][i].float()
+        pods[0][i] = None
+        for p in range(1, num_pods):
+            acc = acc + w[p] * pods[p][i].float()
+            pods[p][i] = None
+        new.append(acc.to(leaf.dtype))
+    loss = torch.sum(w * torch.stack(losses))
+    return tree_unflatten(active, new), {"loss": loss}
+
+
 def make_fed_round_step(model: LM, plan: StagePlan, local_opt: Optimizer, *,
                         num_pods: int, local_steps: int, remat: bool = True,
                         clip_norm: float = 1.0):
@@ -282,33 +364,40 @@ def make_fed_round_step(model: LM, plan: StagePlan, local_opt: Optimizer, *,
 
     def round_step(active: Params, frozen: Params, batch: dict,
                    weights: torch.Tensor):
-        w = (weights / torch.sum(weights)).float()
-        start = tree_leaves(active)
-        pods, losses = [], []
-        for pod in range(num_pods):
-            # detached views, not copies: a step writes no leaf in place
-            # (its update makes new tensors), so the pods share the start
-            # and a full-width block is not held twice (deepseek-v2's MoE
-            # block: 9 GB)
-            leaves = [leaf.detach() for leaf in start]
-            opt_state, step_losses = None, []
-            for s in range(local_steps):
-                b = {k: v[pod, s] for k, v in batch.items()}
-                leaves, opt_state, loss = _local_step(
-                    loss_fn, leaves, active, frozen, b, local_opt, opt_state,
-                    clip_norm)
-                step_losses.append(loss)
-            pods.append(leaves)
-            losses.append(torch.stack(step_losses).mean())
-        new = []
-        for i, leaf in enumerate(start):
-            acc = w[0] * pods[0][i].float()
-            pods[0][i] = None
-            for p in range(1, num_pods):
-                acc = acc + w[p] * pods[p][i].float()
-                pods[p][i] = None
-            new.append(acc.to(leaf.dtype))
-        loss = torch.sum(w * torch.stack(losses))
-        return tree_unflatten(active, new), {"loss": loss}
+        return fed_round(loss_fn, active, (frozen,), batch, weights,
+                         local_opt, num_pods=num_pods,
+                         local_steps=local_steps, clip_norm=clip_norm)
 
     return round_step
+
+
+class TrainState(NamedTuple):
+    active: Params
+    frozen: Params
+    opt_state: Any
+    step: Any
+
+
+def make_train_step(model: LM, plan: StagePlan, optimizer: Optimizer, *,
+                    remat: bool = True, clip_norm: float = 1.0):
+    """Centralized (single-cohort) stage step: ``step(state, batch)`` returns
+    (new TrainState, {"loss", "grad_norm"}). ``state.opt_state`` covers the
+    whole active tree (``optimizer.init(active)``), so a leaf the loss does
+    not reach takes a zero gradient, as it does in the reference."""
+    loss_fn = stage_loss_fn(model, plan, remat=remat)
+
+    def step(state: TrainState, batch: dict):
+        leaves = [leaf.detach() for leaf in tree_leaves(state.active)]
+        loss, grads = _grads(loss_fn, leaves, state.active, state.frozen,
+                             batch)
+        grads = tree_unflatten(state.active, [
+            torch.zeros_like(leaf) if g is None else g
+            for g, leaf in zip(grads, leaves)])
+        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        ups, opt_state = optimizer.update(grads, state.opt_state,
+                                          state.active)
+        active = apply_updates(state.active, ups)
+        return (TrainState(active, state.frozen, opt_state, state.step + 1),
+                {"loss": loss.detach(), "grad_norm": gnorm})
+
+    return step

@@ -7,6 +7,9 @@ The block being trained sees a stage-appropriate downstream:
   layer, then a global pool and an FC head;
 * LMs: one slim proxy layer per remaining block (the arch's own attention,
   a d_ff = d_model MLP), then a norm and a stage-local LM head.
+
+``op_overhead`` is the LM output module's share of a stage's memory and
+FLOPs under the memory model (the paper reports 2.8% and 7.3%).
 """
 from __future__ import annotations
 
@@ -14,8 +17,9 @@ import dataclasses
 
 import torch
 
-from repro_torch.models.layers import (conv2d, conv2d_init, dense_init, norm,
-                                       norm_init)
+from repro_torch.core import memory_model as mm
+from repro_torch.models.layers import (conv2d, conv2d_init, dense,
+                                       dense_init, norm, norm_init)
 from repro_torch.models.module import (ParamFactory, Params, init_stack,
                                        tree_leaves)
 
@@ -55,6 +59,11 @@ def lm_op_hidden(p: Params, h: torch.Tensor, cfg) -> torch.Tensor:
     return norm(p["norm"], h, cfg.norm, cfg.norm_eps)
 
 
+def lm_op_apply(p: Params, h: torch.Tensor, cfg) -> torch.Tensor:
+    """Proxy layers, norm and head: [B, S, V] logits."""
+    return dense(p["head"], lm_op_hidden(p, h, cfg))
+
+
 def cnn_op_init(fac: ParamFactory, cnn_cfg, stage: int) -> Params:
     """One stride-2 conv per remaining stage, channel trajectory preserved."""
     chans = cnn_cfg.stage_channels
@@ -87,3 +96,18 @@ def cnn_fc_only_init(fac: ParamFactory, cnn_cfg, stage: int) -> Params:
 def cnn_fc_only_apply(p: Params, h: torch.Tensor) -> torch.Tensor:
     h = torch.mean(h, dim=(1, 2))
     return h @ p["fc"]["w"] + p["fc"]["b"]
+
+
+def op_overhead(cfg, stage: int, batch: int, seq: int) -> dict:
+    """The stage-``stage`` output module's share of the stage's memory
+    (its params at the param dtype) and FLOPs (the slim proxies' forward
+    and backward), under ``core/memory_model.py``."""
+    n_op = max(cfg.num_freeze_blocks - stage - 1, 0)
+    op_params = n_op * mm._proxy_layer_params(cfg) \
+        + cfg.d_model * cfg.vocab_size
+    op_flops = n_op * mm.layer_fwd_flops_per_token(cfg, "attn_mlp", seq) \
+        * 0.5 * batch * seq * 3
+    stage_mem = mm.stage_memory_bytes(cfg, stage, batch, seq)["total"]
+    stage_fl = mm.stage_flops(cfg, stage, batch, seq)["total"]
+    return {"mem_fraction": op_params * mm.BYTES[cfg.param_dtype] / stage_mem,
+            "flops_fraction": op_flops / stage_fl}

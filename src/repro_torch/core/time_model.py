@@ -1,10 +1,13 @@
-"""Stage-based system time model — Eqs. (5)-(7) (counterpart of the parts
-of ``repro/core/time_model.py`` that the CNN sync path uses; numpy).
+"""Stage-based system time model — Eqs. (5)-(7) (counterpart of
+``repro/core/time_model.py``).
 
 t_t^i = rho * FLOPs_t * |D_i| / c_i          (Eq. 6)
 T_r(S, t) = max_{i in S} t_t^i              (Eq. 7, synchronous round)
 
 These are virtual seconds of the simulated fleet, not time on the card.
+``client_stage_time``, ``round_time``, ``stage_speedup`` and
+``lm_cached_compute_scale`` are the LM forms over the memory model's Eq. 5
+FLOPs, in Python floats as the reference's.
 The ``*_vec`` forms compute in float32 on their inputs' device, as the
 reference's jitted forms do (``completion_times_vec`` rounds its product
 and sum once, as XLA contracts them); ``stage_times``, ``uplink_times``
@@ -13,10 +16,56 @@ and ``completion_times`` are the same bodies on host numpy arrays, which
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.core.memory_model import (full_model_flops,
+                                           layer_fwd_flops_per_token,
+                                           stage_flops)
+
+
+def client_stage_time(cfg, stage: int, num_samples: int,
+                      capability_flops: float, *, batch: int = 1,
+                      seq: int = 1, rho: float = 1.0) -> float:
+    """Eq. (6): seconds for a client to finish stage-t local training."""
+    per_sample = stage_flops(cfg, stage, batch, seq)["total"] / max(batch, 1)
+    return rho * per_sample * num_samples / capability_flops
+
+
+def round_time(cfg, stage: int, clients: Sequence[Dict], *,
+               batch: int = 1, seq: int = 1, rho: float = 1.0) -> float:
+    """Eq. (7): a synchronous round lasts as long as its slowest client
+    ({"num_samples", "capability"} each); an empty cohort costs 0.0."""
+    clients = list(clients)
+    if not clients:
+        return 0.0
+    return max(client_stage_time(cfg, stage, c["num_samples"],
+                                 c["capability"], batch=batch, seq=seq,
+                                 rho=rho)
+               for c in clients)
+
+
+def stage_speedup(cfg, stage: int, *, batch: int = 1, seq: int = 128
+                  ) -> float:
+    """FLOPs speedup of stage-t training over full-model training."""
+    full = full_model_flops(cfg, batch, seq)
+    return full / stage_flops(cfg, stage, batch, seq)["total"]
+
+
+def lm_cached_compute_scale(cfg, stage: int, *, batch: int = 1,
+                            seq: int = 128) -> float:
+    """The LM twin of ``cnn_cached_compute_scale``, exact under Eq. 5: the
+    share of a stage's FLOPs left when the frozen prefix's forward is read
+    from the feature cache."""
+    fl = stage_flops(cfg, stage, batch, seq)
+    lo = cfg.block_boundaries()[stage]
+    kinds = cfg.layer_kinds()
+    tok = batch * seq
+    fwd_frozen = sum(layer_fwd_flops_per_token(cfg, kinds[i], seq)
+                     for i in range(lo)) * tok
+    return max(fl["total"] - fwd_frozen, 0.0) / fl["total"]
 
 
 def cnn_cached_compute_scale(stage: int) -> float:

@@ -25,6 +25,11 @@ and a round runs each tier's clients as one group. With
 params; the master params, the optimizer state and the Eq. 1 fold stay
 f32.
 
+``make_lm_cached_fed_round_step`` is the LM's cached round: the pods of
+``core/freezing.py:make_fed_round_step`` trained on frozen-prefix features
+computed once per stage (``stage_prefix_features``) and stored at a cache
+tier, so only the active suffix runs and is differentiated.
+
 The sequential escape hatch (``sequential=True``, or ``fused=False``) runs
 the same local step for one client at a time and compresses each client's
 update on its own: the deadline policy's straggler rounds and every async
@@ -837,3 +842,64 @@ class RoundEngine:
         return (weighted_avg([u[0] for u in updates], w),
                 weighted_avg([u[1] for u in updates], w), losses,
                 float(np.sum(weights)))
+
+
+# ---------------------------------------------------------------------------
+# LM: the cached-prefix federated round
+# ---------------------------------------------------------------------------
+
+
+def make_lm_cached_fed_round_step(model, plan, local_opt, *, num_pods: int,
+                                  local_steps: int, remat: bool = True,
+                                  clip_norm: float = 1.0,
+                                  feature_tier: str = "f32",
+                                  compute_dtype: Optional[str] = None):
+    """Cached sibling of ``core/freezing.py:make_fed_round_step``:
+    ``round_step(active, batch, weights)``, whose batch carries ``h0`` and
+    ``aux0`` (the frozen prefix's output and aux loss, from
+    ``freezing.stage_prefix_features`` once per stage) beside the labels,
+    with leading dims [num_pods, local_steps]. Only the active suffix runs
+    and is differentiated; the pods share detached views of ``active``
+    (no copy of the tree a pod).
+
+    ``feature_tier`` is the cache's stored precision (``fl/quant.py``):
+    with "fp16" ``h0`` arrives float16, with "int8" it arrives int8 beside
+    its f32 ``h0_scale`` (``quantize_int8`` of the prefix output), and the
+    step decodes it (in f32, then to the compute dtype) inside the loss.
+    ``compute_dtype`` overrides the dtype the decoded features and the
+    active params are evaluated in; the gradients come back in the params'
+    dtypes.
+
+    A prefix that is not static (stage 0's training embedding, or a tied
+    shared-attention layer in the prefix) would train on stale features,
+    so it raises ``ValueError``."""
+    from repro_torch.core.freezing import (cached_stage_loss_fn, fed_round,
+                                           prefix_is_static)
+
+    if not prefix_is_static(plan):
+        raise ValueError(
+            f"stage {plan.stage}: frozen prefix is not a fixed feature "
+            "extractor (training embedding or tied shared-attention in the "
+            "prefix) — use freezing.make_fed_round_step instead")
+    feature_tier = normalize_tier(feature_tier) or "f32"
+    base_loss = cached_stage_loss_fn(model, plan, remat=remat)
+    h_dt = getattr(torch, compute_dtype or model.cfg.compute_dtype)
+
+    def loss_fn(act, batch):
+        if feature_tier != "f32":
+            batch = dict(batch)
+            if feature_tier == "int8":
+                batch["h0"] = (batch["h0"].float()
+                               * batch.pop("h0_scale").float()).to(h_dt)
+            else:
+                batch["h0"] = batch["h0"].to(h_dt)
+        if compute_dtype is None:
+            return base_loss(act, batch)
+        return base_loss(cast_floating(act, compute_dtype), batch).float()
+
+    def round_step(active, batch: dict, weights: torch.Tensor):
+        return fed_round(loss_fn, active, (), batch, weights, local_opt,
+                         num_pods=num_pods, local_steps=local_steps,
+                         clip_norm=clip_norm)
+
+    return round_step

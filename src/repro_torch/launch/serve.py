@@ -9,7 +9,10 @@ Every request of the batch steps its prompt one token at a time through
 latent cache in plain einsums, as the reference does; a MoE layer's FFN
 routes the batch as one token group at twice the capacity factor; a
 hybrid model's Mamba2 layers and an xLSTM's mLSTM and sLSTM layers step
-their O(1) recurrences, which need no kernel. The generated tokens stay
+their O(1) recurrences, which need no kernel. The stub modalities decode
+their prompt tokens through the token embed, as the reference does
+(InternVL2 serves text; HuBERT, encoder-only, then decodes causally over
+its cache). The generated tokens stay
 on the device until the loop ends and cross to the host once; the clock
 stops after ``torch.cuda.synchronize()``.
 
@@ -20,6 +23,8 @@ Examples (one H100, full width):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \\
       --full --batch 8 --prompt-len 192 --gen-len 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b \\
+      --full --batch 8 --prompt-len 192 --gen-len 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b \\
       --full --batch 8 --prompt-len 192 --gen-len 64
 """
 from __future__ import annotations

@@ -3,7 +3,10 @@
 
 Runs SmartFreeze on a dense (GQA or MLA: MiniCPM3), MoE (grok-1 with GQA,
 deepseek-v2 with MLA; the MoE FFN's load-balancing aux loss enters every
-stage loss at 0.01), hybrid (Zamba2) or xLSTM ``--arch``: per stage,
+stage loss at 0.01), hybrid (Zamba2), xLSTM, VLM (InternVL2-2B: ``seq``
+counts its 256 patch positions, the loss reads the text after them) or
+audio (HuBERT-XLarge, an encoder with full attention over its frames)
+``--arch``, with ``make_lm_batch``'s batches: per stage,
 build the (frozen, active) split and output module, run federated rounds
 (pods are the cross-silo clients) through ``fl/sim.py``'s
 ``FederatedLoop``, feed the pace controller the aggregated active block
@@ -13,9 +16,10 @@ On the card every full-sequence GQA attention runs the flash kernel
 (``kernels/csrc/flash_attention.cu``): the dense and MoE GQA layers, the
 hybrid family's shared attention, and the output module's proxy layers,
 which are GQA with the arch's head geometry for every family (xLSTM's 4
-heads of 256, MiniCPM3's 40 of 64). Every Mamba2 layer's SSD scan runs
-the scan kernel (``kernels/csrc/ssm_scan.cu``). MLA, mLSTM and sLSTM
-layers and the MoE FFN call no kernel, as in the reference.
+heads of 256, MiniCPM3's 40 of 64; InternVL2's 16 over 8 kv heads of 128,
+causal; HuBERT's 16 heads of 80, non-causal). Every Mamba2 layer's SSD
+scan runs the scan kernel (``kernels/csrc/ssm_scan.cu``). MLA, mLSTM and
+sLSTM layers and the MoE FFN call no kernel, as in the reference.
 ``use_pallas`` picks the CPU attention path the reference's
 ``--use-pallas`` picks, and raises ``SystemExit`` for an MLA arch, as the
 reference does. The client mesh (``mesh_clients > 1``; ROADMAP A14) is not
@@ -47,6 +51,10 @@ Examples (one H100, full width):
   PYTHONPATH=src python -c "from repro_torch.launch.train import train; \\
       train('minicpm3-4b', reduced=False, steps=12, batch=4, seq=1024, \\
             pace_kwargs=dict(low_memory=True))"
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-2b \\
+      --full --steps 8 --batch 4 --seq 1024 --use-pallas
+  PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge \\
+      --full --steps 8 --batch 4 --seq 1024 --use-pallas
 """
 from __future__ import annotations
 

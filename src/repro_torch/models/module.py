@@ -92,7 +92,9 @@ class ParamFactory:
     values independent of ``device``; a CUDA generator draws a model too
     large for the host straight on the card) and moved to ``device``.
     ``stack=n`` prepends a [n] dim to every parameter, with each layer's
-    fan-in unchanged (``init_stack``)."""
+    fan-in unchanged (``init_stack``). On the meta device nothing is drawn
+    and ``generator`` may be None: the tree carries shapes and dtypes only,
+    as the reference's ``jax.eval_shape`` of an init does."""
 
     def __init__(self, generator: torch.Generator, device="cpu",
                  dtype=torch.float32, stack: int = 0):
@@ -110,6 +112,8 @@ class ParamFactory:
         factory's (Mamba2 keeps A_log, D and dt_bias in float32)."""
         dtype = self.dtype if dtype is None else dtype
         full = ((self.stack,) if self.stack else ()) + tuple(shape)
+        if self.device.type == "meta":
+            return torch.empty(full, dtype=dtype, device="meta")
         if init == "zeros":
             return torch.zeros(full, dtype=dtype, device=self.device)
         if init == "ones":

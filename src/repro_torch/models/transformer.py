@@ -12,13 +12,22 @@ wants), and ``run_layers`` walks a Python loop over slices of the stack.
 A hybrid model's shared-attention segments own no params: their layers use
 ``params["shared_attn"][set]``, the sets alternating by occurrence.
 
+The modality stubs sit in front of the layers. InternVL2's
+(``vision_stub``) projects precomputed patch embeddings through proj1,
+``jax.nn.gelu``'s tanh form in the compute dtype (``layers.gelu``) and
+proj2, and puts those positions in front of the text's token embeddings;
+the loss reads only the text positions. HuBERT's (``audio_stub``)
+projects frame features through one dense layer and has no token embed on
+its forward path; the encoder runs its attention non-causal.
+
 ``init_cache`` / ``decode_step`` are the one-token decode the serving
 loop (``launch/serve.py``) steps: the caches are preallocated per
 segment (stacked [n_layers, ...] for a segment of layers, one KV cache per
 shared-attention occurrence) and each step writes its k/v rows, MLA
 latents and recurrent states into them in place, returning the same dict.
-
-The modality frontends (VLM, audio) wait for ROADMAP A15.
+A decode step always embeds its token with the token embed, as the
+reference's does, for the stub modalities too (an encoder-only model then
+decodes causally over its cache).
 """
 from __future__ import annotations
 
@@ -32,8 +41,8 @@ from repro_torch._device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (activation, dense, dense_init, norm,
-                                       norm_init)
+from repro_torch.models.layers import (activation, dense, dense_init, gelu,
+                                       norm, norm_init)
 from repro_torch.models.module import ParamFactory, Params, init_stack
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -148,16 +157,19 @@ class LM:
     device: torch.device = "cuda"
 
     def __post_init__(self):
-        if self.cfg.family not in ("dense", "moe", "hybrid", "ssm"):
-            raise NotImplementedError(
-                f"{self.cfg.name}: the {self.cfg.family} family is not "
-                "ported (ROADMAP A15)")
         self.device = resolve_device(self.device)
 
     def _build(self, fac: ParamFactory) -> Params:
         cfg = self.cfg
         p: Params = {"embed": fac.param((cfg.vocab_size, cfg.d_model),
                                         init="embed", scale=0.02)}
+        if cfg.modality == "vision_stub":
+            p["frontend"] = {
+                "proj1": dense_init(fac, cfg.frontend_dim, cfg.d_model),
+                "proj2": dense_init(fac, cfg.d_model, cfg.d_model)}
+        elif cfg.modality == "audio_stub":
+            p["frontend"] = {
+                "proj": dense_init(fac, cfg.frontend_dim, cfg.d_model)}
         # shared-attention segments own no params (the reference's tree)
         p["segments"] = {str(i): {} if kind == "shared_attn" else
                          init_stack(fac, n, lambda f, k=kind:
@@ -201,11 +213,20 @@ class LM:
         return layer_at(params["segments"][str(si)], i)
 
     def embed(self, params: Params, batch: Dict) -> torch.Tensor:
+        """[B, S, d_model] in the compute dtype. Audio: the frames'
+        projection. Vision: the patches' projection (when the batch has
+        them) in front of the tokens' embeddings."""
         cfg = self.cfg
-        if cfg.modality != "text":
-            raise NotImplementedError(f"modality {cfg.modality!r} is not "
-                                      "ported (ROADMAP A15)")
-        return params["embed"][batch["tokens"]].to(_dt(cfg.compute_dtype))
+        cdt = _dt(cfg.compute_dtype)
+        if cfg.modality == "audio_stub":
+            return dense(params["frontend"]["proj"], batch["frames"].to(cdt))
+        h = params["embed"][batch["tokens"]].to(cdt)
+        if cfg.modality == "vision_stub" and "patches" in batch:
+            fp = params["frontend"]
+            pe = dense(fp["proj2"], gelu(dense(fp["proj1"],
+                                               batch["patches"].to(cdt))))
+            h = torch.cat([pe, h], dim=1)
+        return h
 
     def run_layers(self, params: Params, h: torch.Tensor, lo: int, hi: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -277,8 +298,9 @@ class LM:
         """One-token decode. batch['tokens']: [B, 1]; ``pos`` (a host
         integer) is its position. Writes every attention layer's k/v (or
         MLA latent) row at ``pos`` and every recurrent layer's state into
-        ``cache`` in place and returns (logits [B, 1, V], cache)."""
-        h = self.embed(params, batch)
+        ``cache`` in place and returns (logits [B, 1, V], cache). The token
+        embed serves every modality, as in the reference."""
+        h = params["embed"][batch["tokens"]].to(_dt(self.cfg.compute_dtype))
         steps = attn.decode_positions(h.shape[0], int(pos), h.device)
         for kind, si, s_lo, s_hi in self._seg_table():
             seg_cache = cache[str(si)]
@@ -291,9 +313,12 @@ class LM:
 
 
 def token_loss(logits: torch.Tensor, batch: Dict, cfg) -> torch.Tensor:
-    """Mean cross-entropy against batch['labels'] (labels < 0 masked)."""
+    """Mean cross-entropy against batch['labels'] (labels < 0 masked); a
+    VLM's logits are read at the text positions only."""
     labels = batch["labels"]
     lf = logits.float()
+    if cfg.modality == "vision_stub" and lf.shape[1] != labels.shape[1]:
+        lf = lf[:, lf.shape[1] - labels.shape[1]:]
     logz = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.clamp(min=0)[..., None].long())[..., 0]
     mask = (labels >= 0).float()
@@ -312,8 +337,11 @@ def chunked_ce_loss(h: torch.Tensor, head_w: torch.Tensor, batch: Dict, cfg,
                     *, chunk: int = 512) -> torch.Tensor:
     """Cross-entropy without holding [B, S, V] logits: sequence chunks, each
     checkpointed, so the backward recomputes one chunk's f32 logits at a
-    time. head_w: [d, V]."""
+    time. head_w: [d, V]. Only the last ``labels.shape[1]`` positions of
+    ``h`` are read: a VLM's image positions, in front, carry no label."""
     labels = batch["labels"]
+    if h.shape[1] != labels.shape[1]:
+        h = h[:, h.shape[1] - labels.shape[1]:]
     B, S, d = h.shape
     c = min(chunk, S)
     while S % c:

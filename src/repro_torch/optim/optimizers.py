@@ -2,9 +2,16 @@
 (counterpart of ``repro/optim/optimizers.py``).
 
 Each ``Optimizer`` is (init, update): ``update(grads, state, params)``
-returns (updates, new_state), and updates are ADDED to params. Frozen
-blocks never enter the optimizer — SmartFreeze splits the param tree
-itself, so no masking is needed.
+returns (updates, new_state), and updates are ADDED to params. AdamW keeps
+f32 moments and applies its update in f32 before the cast back, so bf16
+params train stably. Frozen blocks never enter the optimizer — SmartFreeze
+splits the param tree itself, so no masking is needed.
+
+``zero_grad_noop`` says that a zero gradient gives a zero update whatever
+the state (SGD, momentum from a zero start): a trainer may then skip a
+leaf the loss does not reach instead of feeding it zeros
+(``core/freezing.py``). AdamW's weight decay moves every leaf, so it
+takes the zeros.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ Schedule = Union[float, Callable[[int], float]]
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[..., tuple]
+    zero_grad_noop: bool = False
 
 
 def _lr(schedule: Schedule, step: int):
@@ -36,7 +44,7 @@ def sgd(lr: Schedule) -> Optimizer:
         ups = tree_map(lambda g: -lr_t * g.float(), grads)
         return ups, {"step": step}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, zero_grad_noop=True)
 
 
 def momentum(lr: Schedule, beta: float = 0.9) -> Optimizer:
@@ -51,6 +59,37 @@ def momentum(lr: Schedule, beta: float = 0.9) -> Optimizer:
         lr_t = _lr(lr, step)
         ups = tree_map(lambda m: -lr_t * m, mu)
         return ups, {"step": step, "mu": mu}
+
+    return Optimizer(init, update, zero_grad_noop=True)
+
+
+def adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.0) -> Optimizer:
+    """AdamW with f32 moments m and v, an integer step and the bias
+    corrections 1 - b^step taken in f32, as the reference computes them."""
+    def init(params):
+        def zeros(p):
+            return torch.zeros_like(p, dtype=torch.float32)
+        return {"step": 0, "m": tree_map(zeros, params),
+                "v": tree_map(zeros, params)}
+
+    def update(grads, state, params):
+        step = state["step"] + 1
+        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.float(),
+                     state["m"], grads)
+        v = tree_map(lambda v_, g: b2 * v_
+                     + (1 - b2) * torch.square(g.float()), state["v"], grads)
+        t = torch.tensor(step, dtype=torch.float32)
+        c1 = 1 - b1 ** t
+        c2 = 1 - b2 ** t
+        lr_t = _lr(lr, step)
+
+        def upd(m_, v_, p):  # c1, c2: 0-dim CPU tensors, scalars on a card
+            return -lr_t * ((m_ / c1) / (torch.sqrt(v_ / c2) + eps)
+                            + weight_decay * p.float())
+
+        ups = tree_map(upd, m, v, params)
+        return ups, {"step": step, "m": m, "v": v}
 
     return Optimizer(init, update)
 

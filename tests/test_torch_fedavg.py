@@ -319,15 +319,13 @@ def test_error_feedback_residuals_equal_reference_over_three_calls():
 
 
 def test_fl_exports_level_with_reference():
-    """Every public name of ``repro.fl`` but its submodules and the LM
-    cached round step (not ported) is exported by ``repro_torch.fl``, and
-    ``baselines`` is a submodule of both."""
+    """Every public name of ``repro.fl`` but its submodules is exported by
+    ``repro_torch.fl``, and ``baselines`` is a submodule of both."""
     import types
     import repro.fl.baselines  # noqa: F401
     import repro_torch.fl.baselines as tb
     names = {n for n in dir(jfl) if not n.startswith("_")
              and not isinstance(getattr(jfl, n), types.ModuleType)}
-    names.discard("make_lm_cached_fed_round_step")
     assert names <= set(tfl.__all__), sorted(names - set(tfl.__all__))
     assert all(hasattr(tfl, n) for n in tfl.__all__)
     assert tfl.FedAvgServer is TFedAvg

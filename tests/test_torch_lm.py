@@ -122,7 +122,8 @@ def _batch(cfg, b=2, s=24, seed=0):
 @pytest.mark.parametrize("name", ["llama3-8b", "qwen2-72b",
                                   "deepseek-coder-33b", "zamba2-7b",
                                   "xlstm-350m", "minicpm3-4b",
-                                  "deepseek-v2-236b", "grok-1-314b"])
+                                  "deepseek-v2-236b", "grok-1-314b",
+                                  "internvl2-2b", "hubert-xlarge"])
 def test_configs_match_reference(name):
     j, t = jconfigs.get(name), tconfigs.get(name)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
@@ -131,13 +132,6 @@ def test_configs_match_reference(name):
     assert dataclasses.asdict(t.reduced(**SMALL)) == \
         dataclasses.asdict(j.reduced(**SMALL))
     assert dataclasses.asdict(t.reduced()) == dataclasses.asdict(j.reduced())
-
-
-@pytest.mark.parametrize("name", ["internvl2-2b", "hubert-xlarge"])
-def test_unported_architectures_raise(name):
-    assert name in jconfigs.names()
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        tconfigs.get(name)
 
 
 @pytest.mark.parametrize("seed", [0, 7])

@@ -185,7 +185,9 @@ def test_unported_policies_and_run_arguments_raise():
 def test_port_imports_without_jax_or_reference():
     """Every module of the port imports with JAX, the JAX package and
     ml_dtypes blocked, the LM, serving, hybrid, B3, tier, policy, baseline,
-    fault, checkpoint, population and MoE slices' modules among them, and
+    fault, checkpoint, population, MoE and frontend slices' modules among
+    them (the schedules, the LM memory model and the VLM and audio
+    configs), and
     registering the ported configs pulls in nothing of them; chip_smoke.py
     imports none of them."""
     code = ("import sys\n"
@@ -217,12 +219,17 @@ def test_port_imports_without_jax_or_reference():
             "'repro_torch.configs.grok1_314b', "
             "'repro_torch.configs.deepseek_v2_236b', "
             "'repro_torch.configs.resnet_cifar', "
-            "'repro_torch.configs.vgg_cifar'):\n"
+            "'repro_torch.configs.vgg_cifar', "
+            "'repro_torch.configs.internvl2_2b', "
+            "'repro_torch.configs.hubert_xlarge', "
+            "'repro_torch.optim.schedules', "
+            "'repro_torch.core.memory_model'):\n"
             "    assert n in names, n\n"
             "from repro_torch import configs\n"
             "assert configs.names() == ['deepseek-coder-33b', "
-            "'deepseek-v2-236b', 'grok-1-314b', 'llama3-8b', 'minicpm3-4b', "
-            "'qwen2-72b', 'xlstm-350m', 'zamba2-7b']\n"
+            "'deepseek-v2-236b', 'grok-1-314b', 'hubert-xlarge', "
+            "'internvl2-2b', 'llama3-8b', 'minicpm3-4b', 'qwen2-72b', "
+            "'xlstm-350m', 'zamba2-7b']\n"
             "assert not any(k == 'jax' or k.startswith('jax.') or k == 'repro' "
             "or k.startswith('repro.') for k, v in sys.modules.items() "
             "if v is not None)\n")
